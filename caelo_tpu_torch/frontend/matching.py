@@ -1,0 +1,46 @@
+"""Descriptor matching through a distance matmul (port of
+``caelo_tpu/frontend/matching.py``).  Batched over leading axes: a window's
+pairs are matched in one call."""
+from __future__ import annotations
+
+import torch
+
+_INF = float("inf")
+
+
+def squared_distance_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``(..., N, D), (..., M, D) -> (..., N, M)`` squared euclidean distances
+    via ``||a||^2 + ||b||^2 - 2 a.b``."""
+    a2 = (a * a).sum(-1)
+    b2 = (b * b).sum(-1)
+    ab = a @ b.transpose(-1, -2)
+    return torch.clamp_min(a2[..., :, None] + b2[..., None, :] - 2.0 * ab, 0.0)
+
+
+def match_descriptors(codes0, mask0, codes1, mask1,
+                      pts0=None, pts1=None, prior_R=None, prior_t=None,
+                      gate_m: float = 0.0, ratio: float = 0.0):
+    """For each frame-1 keypoint, the nearest frame-0 descriptor.
+
+    With a motion prior (``pts0``, ``pts1``, ``prior_R``, ``prior_t``,
+    ``gate_m > 0``) only frame-0 keypoints within ``gate_m`` metres of the
+    prior-predicted frame-1 keypoint are eligible; ``ratio > 0`` adds the
+    Lowe distinctiveness gate.
+
+    Returns ``(pair_idx (..., K1) int64, pair_mask (..., K1), pair_dist
+    (..., K1))``.
+    """
+    d2 = squared_distance_matrix(codes0, codes1)           # (..., K0, K1)
+    d2 = torch.where(mask0[..., :, None], d2, _INF)
+    if gate_m > 0.0 and pts0 is not None:
+        pred1 = pts1 @ prior_R.transpose(-1, -2) + prior_t[..., None, :]
+        g2 = squared_distance_matrix(pts0, pred1)
+        d2 = torch.where(g2 <= gate_m * gate_m, d2, _INF)
+    pair_idx = torch.argmin(d2, dim=-2)
+    pair_d2 = d2.gather(-2, pair_idx[..., None, :])[..., 0, :]
+    pair_mask = mask1 & torch.isfinite(pair_d2)
+    if ratio > 0.0:
+        second = torch.topk(d2, 2, dim=-2, largest=False).values[..., 1, :]
+        distinct = pair_d2 <= (ratio * ratio) * second
+        pair_mask = pair_mask & (distinct | ~torch.isfinite(second))
+    return pair_idx, pair_mask, torch.sqrt(torch.where(pair_mask, pair_d2, 0.0))

@@ -1,0 +1,140 @@
+"""Windowed sequence odometry (port of
+``caelo_tpu/frontend/odometry.py::run_odometry_windowed``).
+
+Feature extraction and registration run on the device one window at a time;
+the pose chain -- the only sequential dependency -- is host float64.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List
+
+import numpy as np
+import torch
+
+from ..config import PipelineConfig
+from .. import setup_device
+from ..geometry.kitti_pose import chain_poses
+from ..parallel.pipeline import make_sequence_processor
+from .registration import FrameFeatures
+
+
+@dataclasses.dataclass
+class OdometryResult:
+    poses: np.ndarray                 # (N, 12) KITTI rows
+    rel_Rs: np.ndarray                # (N-1, 3, 3) lidar-frame rels
+    rel_ts: np.ndarray                # (N-1, 3)
+    successes: np.ndarray             # (N-1,) bool
+    n_inliers: np.ndarray             # (N-1,) int
+    inlier_pairs: List                # per pair: (idx0, idx1) int arrays
+    thresholds: np.ndarray = None     # (N-1,) accepted RANSAC rung (m)
+
+
+def window_starts(n: int, window: int) -> list:
+    """First frame of each window; consecutive windows share one frame so
+    every consecutive pair is registered."""
+    starts, s0 = [], 0
+    while s0 < n - 1:
+        starts.append(s0)
+        s0 = min(s0 + window, n) - 1
+    return starts
+
+
+def run_odometry_windowed(scans, respond_net, encoder, R_tr=None, t_tr=None,
+                          cfg: PipelineConfig = PipelineConfig(),
+                          window: int = 16, seed: int = 0,
+                          keep_features: bool = False,
+                          samples=None) -> tuple:
+    """Windowed frame-to-frame odometry over ``scans``, a sequence of
+    ``(pts (N, 4), mask (N,))`` numpy arrays or tensors.
+
+    Runs on the device of ``respond_net``'s parameters.  Each window is one
+    call of the window processor; windows overlap by one frame.  Unlike the
+    JAX version, the last window is not padded to ``window`` frames (eager
+    PyTorch needs no fixed shape), and windows are staged synchronously.
+
+    ``samples``, if given, is ``(pass1, pass2)``: ``(n-1, H, S)`` RANSAC pair
+    indices per global pair for the plain pass and the motion-prior retry
+    (the parity seam of ``ransac_rigid``); otherwise draws come from a
+    ``torch.Generator`` seeded with ``seed``.
+
+    Returns ``(OdometryResult, features_or_None)``; ``features`` stacks the
+    kept frames' ``FrameFeatures`` on a leading axis of length n.
+    """
+    if R_tr is None:
+        R_tr = np.eye(3)
+    if t_tr is None:
+        t_tr = np.zeros(3)
+    n = len(scans)
+    if n < 2:
+        raise ValueError("odometry needs at least two scans")
+    device = setup_device(next(respond_net.parameters()).device)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    process = make_sequence_processor(cfg)
+
+    rel_Rs = np.zeros((n - 1, 3, 3))
+    rel_ts = np.zeros((n - 1, 3))
+    succ = np.zeros((n - 1,), bool)
+    n_inl = np.zeros((n - 1,), np.int32)
+    ths = np.zeros((n - 1,), np.float32)
+    pairs: List = [None] * (n - 1)
+    feat_windows: List = []
+
+    for start in window_starts(n, window):
+        stop = min(start + window, n)
+        pts = torch.stack([torch.as_tensor(scans[i][0]) for i in
+                           range(start, stop)]).to(device)
+        msk = torch.stack([torch.as_tensor(scans[i][1]) for i in
+                           range(start, stop)]).to(device)
+        win_samples = None
+        if samples is not None:
+            win_samples = tuple(torch.as_tensor(s[start:stop - 1])
+                                for s in samples)
+        feats, regs = process(respond_net, encoder, pts, msk, generator,
+                              win_samples)
+        R_all = regs.R.double().cpu().numpy()
+        t_all = regs.t.double().cpu().numpy()
+        s_all = regs.success.cpu().numpy()
+        ni_all = regs.n_inliers.cpu().numpy()
+        th_all = regs.threshold.cpu().numpy()
+        inl_mask = regs.inlier_mask.cpu().numpy()
+        idx0 = regs.inlier_idx0.cpu().numpy()
+        idx1 = regs.inlier_idx1.cpu().numpy()
+        for k in range(stop - start - 1):
+            g = start + k
+            rel_Rs[g] = R_all[k]
+            rel_ts[g] = t_all[k]
+            ok = bool(s_all[k])
+            if ok and cfg.max_rel_rot_deg > 0:
+                # physical-plausibility gate: a per-pair motion impossible
+                # at scan rate is an aliased consensus, not a success
+                ang = np.degrees(np.arccos(np.clip(
+                    (np.trace(R_all[k]) - 1.0) / 2.0, -1.0, 1.0)))
+                if (ang > cfg.max_rel_rot_deg
+                        or np.linalg.norm(t_all[k]) > cfg.max_rel_trans_m):
+                    ok = False
+            succ[g] = ok
+            n_inl[g] = int(ni_all[k])
+            ths[g] = float(th_all[k])
+            pairs[g] = (idx0[k][inl_mask[k]], idx1[k][inl_mask[k]])
+        if keep_features:
+            j0 = 0 if start == 0 else 1         # drop the overlap frame
+            feat_windows.append(FrameFeatures(*(x[j0:] for x in feats)))
+
+    feats_out = None
+    if keep_features:
+        feats_out = FrameFeatures(*(torch.cat(xs) for xs in zip(*feat_windows)))
+
+    # constant-velocity fallback on failures
+    prevR, prevT = np.eye(3), np.zeros(3)
+    for g in range(n - 1):
+        if not succ[g]:
+            rel_Rs[g] = prevR
+            rel_ts[g] = prevT
+        prevR, prevT = rel_Rs[g], rel_ts[g]
+
+    poses = chain_poses(rel_Rs, rel_ts, np.asarray(R_tr), np.asarray(t_tr))
+    result = OdometryResult(
+        poses=poses, rel_Rs=rel_Rs, rel_ts=rel_ts, successes=succ,
+        n_inliers=n_inl, inlier_pairs=pairs, thresholds=ths)
+    return result, feats_out

@@ -1,0 +1,137 @@
+"""Per-frame feature extraction and pairwise registration (port of
+``caelo_tpu/frontend/registration.py:35-188``).
+
+  scan -> spherical ring -> respond net -> NMS top-k (K1) -> voxel pyramid
+  -> 3-scale bit-table patches (K2) -> encoder -> 60-dim descriptors ->
+  NN matching -> batched RANSAC -> refit pose.
+
+Registration is batched over leading axes of the features, so a window's
+consecutive pairs register in one call.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..config import PipelineConfig
+from ..models.patch_encoder import PatchEncoder
+from ..models.respond_net import RespondLayer
+from ..ops.nms import select_keypoints_planes
+from ..projection.spherical import model_input, project_to_spherical_ring
+from ..voxel.grid import extract_patches, voxelize
+from .matching import match_descriptors
+from .ransac import RansacResult, ransac_rigid
+
+
+class FrameFeatures(NamedTuple):
+    """Per-frame keypoints + descriptors (fixed shapes, mask-padded)."""
+
+    key_pts: torch.Tensor      # (..., K, 3)
+    descriptors: torch.Tensor  # (..., K, 60)
+    mask: torch.Tensor         # (..., K) bool
+    key_pixels: torch.Tensor   # (..., K, 2) int32
+
+
+class PairRegistration(NamedTuple):
+    R: torch.Tensor
+    t: torch.Tensor
+    success: torch.Tensor
+    inlier_idx0: torch.Tensor  # (..., K) int64 -- frame-0 keypoint per pair
+    inlier_idx1: torch.Tensor  # (..., K) int64 -- frame-1 keypoint per pair
+    inlier_mask: torch.Tensor  # (..., K) bool
+    n_inliers: torch.Tensor
+    threshold: torch.Tensor
+
+
+def stack_features(feats) -> FrameFeatures:
+    """A list of per-frame ``FrameFeatures`` -> one with a leading frame axis."""
+    return FrameFeatures(*(torch.stack(xs) for xs in zip(*feats)))
+
+
+@torch.no_grad()
+def extract_frame_features(respond_net: RespondLayer, encoder: PatchEncoder,
+                           pts: torch.Tensor, mask: torch.Tensor,
+                           cfg: PipelineConfig = PipelineConfig()
+                           ) -> FrameFeatures:
+    """Full per-frame front end: padded scan ``(N, 4)`` + mask ``(N,)`` ->
+    keypoints + descriptors, on the device of ``pts``.
+
+    ``encoder`` must carry ``cfg``'s activation names.  Only
+    ``compute_dtype='float32'`` is ported; on a card, call
+    ``caelo_tpu_torch.setup_device`` first so the convs run in full float32
+    (``run_odometry_windowed`` does).
+    """
+    if cfg.compute_dtype != "float32":
+        raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: only float32 "
+                         "is ported")
+    if (encoder.activation, encoder.code_activation) != (
+            cfg.encoder_activation, cfg.encoder_code_activation):
+        raise ValueError("encoder activations differ from the config's")
+    image, counter = project_to_spherical_ring(pts, mask, cfg.sensor)
+    net_in = model_input(image, cfg.sensor).permute(2, 0, 1)[None]
+    planes = respond_net(net_in)[0]                    # (8, H, W) NCHW planes
+    key_pts, key_pixels, key_mask, _ = select_keypoints_planes(
+        image, counter, planes, cfg.sensor, cfg.keypoint)
+    pyramid = voxelize(pts[:, :3], mask, cfg.voxel)
+    patches = extract_patches(key_pts, key_mask, pyramid, cfg.voxel)
+    # one encoder pass over all 3 scales stacked on the batch axis, in
+    # chunks of encoder_chunk patches to bound the conv activations
+    K = patches[0].shape[0]
+    stacked = torch.cat(patches, 0)
+    ck = cfg.encoder_chunk
+    if ck and stacked.shape[0] > ck and stacked.shape[0] % ck == 0:
+        codes = torch.cat([encoder(c) for c in stacked.split(ck)])
+    else:
+        codes = encoder(stacked)
+    descriptors = torch.cat([codes[i * K:(i + 1) * K]
+                             for i in range(len(patches))], -1)
+    descriptors = torch.where(key_mask[:, None], descriptors, 0.0)
+    return FrameFeatures(key_pts, descriptors, key_mask, key_pixels)
+
+
+@torch.no_grad()
+def _register(f0: FrameFeatures, f1: FrameFeatures, cfg: PipelineConfig,
+              prior_R=None, prior_t=None, gate_m: float = 0.0,
+              generator=None, samples=None) -> PairRegistration:
+    pair_idx, pair_mask, pair_dist = match_descriptors(
+        f0.descriptors, f0.mask, f1.descriptors, f1.mask,
+        pts0=f0.key_pts, pts1=f1.key_pts,
+        prior_R=prior_R, prior_t=prior_t, gate_m=gate_m,
+        ratio=cfg.match_ratio)
+    pairs0 = f0.key_pts.gather(
+        -2, pair_idx[..., None].expand(*pair_idx.shape, 3))
+    res: RansacResult = ransac_rigid(
+        pairs0, f1.key_pts, pair_mask, cfg.ransac, pair_dist=pair_dist,
+        generator=generator, samples=samples)
+    idx1 = torch.arange(pair_idx.shape[-1], device=pair_idx.device)
+    return PairRegistration(
+        R=res.R, t=res.t, success=res.success,
+        inlier_idx0=pair_idx, inlier_idx1=idx1.expand_as(pair_idx),
+        inlier_mask=res.inlier_mask, n_inliers=res.n_inliers,
+        threshold=res.threshold)
+
+
+def register_pair(f0: FrameFeatures, f1: FrameFeatures,
+                  cfg: PipelineConfig = PipelineConfig(),
+                  generator: torch.Generator | None = None,
+                  samples: torch.Tensor | None = None) -> PairRegistration:
+    """Rigid transform mapping frame-1 points into frame 0, for one pair or
+    a batch of pairs (leading axes of the features).  ``samples`` (``(...,
+    H, S)``) replaces the RANSAC draw (see ``ransac_rigid``)."""
+    return _register(f0, f1, cfg, generator=generator, samples=samples)
+
+
+def register_pair_with_prior(f0: FrameFeatures, f1: FrameFeatures,
+                             prior_R: torch.Tensor, prior_t: torch.Tensor,
+                             cfg: PipelineConfig = PipelineConfig(),
+                             gate_m: float | None = None,
+                             generator: torch.Generator | None = None,
+                             samples: torch.Tensor | None = None
+                             ) -> PairRegistration:
+    """``register_pair`` with a constant-velocity motion prior: candidate
+    matches are gated to ``cfg.prior_gate_m`` metres (or ``gate_m``) around
+    the prior-predicted keypoint positions."""
+    return _register(f0, f1, cfg, prior_R=prior_R, prior_t=prior_t,
+                     gate_m=cfg.prior_gate_m if gate_m is None else gate_m,
+                     generator=generator, samples=samples)

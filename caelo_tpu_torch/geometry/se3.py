@@ -1,0 +1,123 @@
+"""Batched rotation algebra and the Horn rigid solve in PyTorch.
+
+Port of the parts of ``caelo_tpu/geometry/se3.py`` that the front-end
+window runs.  Shapes are polymorphic over leading batch dimensions, as in
+the JAX module.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+RADIAN2DEGREE = 180.0 / math.pi
+
+# Jacobi rotation order of one sweep (caelo_tpu/geometry/se3.py:202)
+_PAIRS = [(0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3)]
+
+
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion ``(..., 4)`` (w, x, y, z) -> rotation ``(..., 3, 3)``."""
+    w, x, y, z = q.unbind(-1)
+    rows = [
+        [1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (y * w + z * x)],
+        [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+        [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)],
+    ]
+    return torch.stack([torch.stack(r, -1) for r in rows], -2)
+
+
+def max_eigvec_sym4x4_lanes(A: torch.Tensor, sweeps: int = 8) -> torch.Tensor:
+    """Eigenvector of the largest eigenvalue of symmetric 4x4 matrices with
+    the batch on the LAST axis: ``A`` is ``(4, 4, B)``, returns ``(4, B)``.
+
+    Cyclic Jacobi with a fixed sweep count and the same rotation order as
+    the JAX version: every Givens rotation is elementwise math on ``(B,)``
+    vectors, with no data-dependent control flow.
+    """
+    A = A.clone()
+    B = A.shape[-1]
+    V = torch.eye(4, dtype=A.dtype, device=A.device)[..., None].repeat(1, 1, B)
+    for _ in range(sweeps):
+        for p, q in _PAIRS:
+            theta = 0.5 * torch.atan2(2.0 * A[p, q], A[p, p] - A[q, q])
+            c, s = torch.cos(theta), torch.sin(theta)
+            # rows of A, then columns of A, then V <- V G
+            Ap, Aq = c * A[p] + s * A[q], -s * A[p] + c * A[q]
+            A[p], A[q] = Ap, Aq
+            Ap, Aq = c * A[:, p] + s * A[:, q], -s * A[:, p] + c * A[:, q]
+            A[:, p], A[:, q] = Ap, Aq
+            Vp, Vq = c * V[:, p] + s * V[:, q], -s * V[:, p] + c * V[:, q]
+            V[:, p], V[:, q] = Vp, Vq
+    diag = torch.stack([A[i, i] for i in range(4)])           # (4, B)
+    imax = torch.argmax(diag, dim=0)                           # (B,)
+    v = V.gather(1, imax.view(1, 1, B).expand(4, 1, B))[:, 0]  # (4, B)
+    return v / torch.linalg.vector_norm(v, dim=0, keepdim=True)
+
+
+def max_eigvec_sym4x4(A: torch.Tensor, sweeps: int = 8) -> torch.Tensor:
+    """Eigenvector of the largest eigenvalue of a symmetric 4x4, batched over
+    leading axes: ``(..., 4, 4) -> (..., 4)``.
+
+    The JAX version applies each Givens rotation as ``G^T A G`` on
+    ``(..., 4, 4)`` blocks; here the batch moves to the last axis and the
+    rotation runs as the row/column updates of
+    :func:`max_eigvec_sym4x4_lanes` -- the same rotations in the same order
+    (the products with G's zero entries are exact), with far fewer kernel
+    launches on the card.
+    """
+    batch = A.shape[:-2]
+    lanes = A.reshape(-1, 4, 4).permute(1, 2, 0)
+    return max_eigvec_sym4x4_lanes(lanes, sweeps).T.reshape(*batch, 4)
+
+
+def _horn_N(M: torch.Tensor) -> torch.Tensor:
+    """Horn's symmetric 4x4 matrix from a 3x3 cross-covariance."""
+    m = lambda i, j: M[..., i, j]
+    tr = m(0, 0) + m(1, 1) + m(2, 2)
+    d0 = m(1, 2) - m(2, 1)
+    d1 = m(2, 0) - m(0, 2)
+    d2 = m(0, 1) - m(1, 0)
+    rows = [
+        [tr, d0, d1, d2],
+        [d0, 2 * m(0, 0) - tr, m(0, 1) + m(1, 0), m(0, 2) + m(2, 0)],
+        [d1, m(0, 1) + m(1, 0), 2 * m(1, 1) - tr, m(1, 2) + m(2, 1)],
+        [d2, m(0, 2) + m(2, 0), m(1, 2) + m(2, 1), 2 * m(2, 2) - tr],
+    ]
+    return torch.stack([torch.stack(r, -1) for r in rows], -2)
+
+
+def solve_rigid_horn(p0: torch.Tensor, p1: torch.Tensor,
+                     weights: torch.Tensor | None = None):
+    """Weighted least-squares rigid transform mapping ``p1 -> p0``.
+
+    Args:
+      p0: ``(..., N, 3)`` target points.
+      p1: ``(..., N, 3)`` source points.
+      weights: optional ``(..., N)`` nonnegative weights (inlier masks).
+
+    Returns ``(R, t)``, ``(..., 3, 3)`` and ``(..., 3)``: always a proper
+    rotation (Horn's quaternion method, no reflection branch).
+    """
+    if weights is None:
+        weights = torch.ones(p0.shape[:-1], dtype=p0.dtype, device=p0.device)
+    w = weights[..., None]
+    wsum = torch.clamp_min(weights.sum(-1, keepdim=True), 1e-9)
+    mean0 = (p0 * w).sum(-2) / wsum
+    mean1 = (p1 * w).sum(-2) / wsum
+    q0 = p0 - mean0[..., None, :]
+    q1 = p1 - mean1[..., None, :]
+    # cross covariance M[i, j] = sum_n w_n q1[n, i] q0[n, j]
+    M = torch.einsum("...ni,...nj->...ij", q1 * w, q0)
+    q = max_eigvec_sym4x4(_horn_N(M))      # (w, x, y, z): q1 into q0
+    R = quat_to_rotmat(q)
+    t = mean0 - torch.einsum("...ij,...j->...i", R, mean1)
+    return R, t
+
+
+def rotation_geodesic_deg(R0: torch.Tensor, R1: torch.Tensor) -> torch.Tensor:
+    """Geodesic angle between two rotations, in degrees."""
+    Rrel = R0.transpose(-1, -2) @ R1
+    tr = Rrel[..., 0, 0] + Rrel[..., 1, 1] + Rrel[..., 2, 2]
+    c = torch.clamp((tr - 1.0) / 2.0, -1.0, 1.0)
+    return torch.arccos(c) * RADIAN2DEGREE

@@ -1,0 +1,114 @@
+"""The port on a CUDA device: both CUDA kernels against their plain versions
+at the main path's shapes, and one frame's features and registration on the
+card against the CPU path.  Every test skips without a CUDA device.
+
+Imports torch and the port only, so the file also runs where JAX is absent
+(the repo's conftest imports JAX, hence ``--noconftest``):
+
+    python -m pytest --noconftest tests/test_torch_gpu.py -q
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from caelo_tpu_torch import setup_device
+from caelo_tpu_torch.config import tiny_test_config
+from caelo_tpu_torch.data.synthetic import (make_scene, range_filter,
+                                            sample_scene_points)
+from caelo_tpu_torch.frontend.ransac import draw_samples
+from caelo_tpu_torch.frontend.registration import (extract_frame_features,
+                                                   register_pair,
+                                                   stack_features)
+from caelo_tpu_torch.models.weights_io import build_models, random_flax_params
+from caelo_tpu_torch.ops.masking import pad_points
+from caelo_tpu_torch.ops.plane_gather import gather_planes, gather_planes_plain
+from caelo_tpu_torch.ops.saliency import saliency_map, saliency_map_plain
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return setup_device("cuda")
+
+
+@pytest.fixture
+def rng():
+    return np.random.default_rng(0)
+
+
+@pytest.mark.parametrize("batch", [None, 4])
+def test_saliency_kernel_matches_plain(cuda, rng, batch):
+    shape = (8, 64, 1792) if batch is None else (batch, 8, 64, 1792)
+    planes = torch.from_numpy(
+        np.maximum(rng.normal(0, 15, shape), 0).astype(np.float32)).to(cuda)
+    occ = torch.from_numpy(rng.uniform(size=shape[:-3] + shape[-2:]) < 0.6
+                           ).to(cuda)
+    before = saliency_map.launches
+    md, cnt = saliency_map(planes, occ)
+    torch.cuda.synchronize()
+    assert saliency_map.launches == before + 1
+    md_ref, cnt_ref = saliency_map_plain(planes, occ)
+    assert torch.equal(cnt, cnt_ref)
+    fin = torch.isfinite(md_ref)
+    assert torch.equal(torch.isfinite(md), fin)
+    torch.testing.assert_close(md[fin], md_ref[fin], atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("slots", [81920, 6144, 512])
+def test_plane_gather_kernel_matches_plain(cuda, rng, slots):
+    P = 16
+    table2 = torch.from_numpy(rng.integers(
+        -2**31, 2**31 - 1, (slots + 1, P, P)).astype(np.int32)).to(cuda)
+    table2[slots] = 0
+    slot = torch.from_numpy(
+        rng.integers(-2, slots + 3, (1024, 2, 2, 2)).astype(np.int32)).to(cuda)
+    before = gather_planes.launches
+    out = gather_planes(table2, slot)
+    torch.cuda.synchronize()
+    assert gather_planes.launches == before + 1
+    assert torch.equal(out, gather_planes_plain(table2, slot))
+
+
+def _scan(cfg, shift):
+    world = sample_scene_points(make_scene(0, n_boxes=25, extent=30.0), 0,
+                                cfg.max_points)
+    local = range_filter((world - np.array([shift, 0.0, 0.0])
+                          ).astype(np.float32), cfg.sensor)
+    refl = np.full((len(local), 1), 0.5, np.float32)
+    return pad_points(np.concatenate([local, refl], 1), cfg.max_points)
+
+
+def test_frame_and_pair_on_card_match_cpu(cuda):
+    """Both kernels on the card against the all-plain CPU path: the same
+    keypoints, descriptors to rtol/atol 1e-5, and the same registration
+    from the same injected RANSAC samples."""
+    cfg = tiny_test_config()
+    cfg_k = dataclasses.replace(cfg, voxel=dataclasses.replace(
+        cfg.voxel, use_pallas_plane_gather=True))
+    params = random_flax_params(0)
+    nets = {d: build_models(*params, d, cfg) for d in ("cpu", cuda)}
+    feats = {d: [] for d in nets}
+    for shift in (0.0, 0.8):
+        pts, mask = (torch.from_numpy(a) for a in _scan(cfg, shift))
+        for d, (net, enc) in nets.items():
+            feats[d].append(extract_frame_features(
+                net, enc, pts.to(d), mask.to(d), cfg_k))
+    f_cpu, f_gpu = (stack_features(feats[d]) for d in nets)
+    assert torch.equal(f_gpu.key_pixels.cpu(), f_cpu.key_pixels)
+    assert torch.equal(f_gpu.key_pts.cpu(), f_cpu.key_pts)
+    torch.testing.assert_close(f_gpu.descriptors.cpu(), f_cpu.descriptors,
+                               rtol=1e-5, atol=1e-5)
+    split = lambda f: [type(f)(*(x[i] for x in f)) for i in (0, 1)]
+    samples = draw_samples(f_cpu.mask[1:], cfg.ransac,
+                           torch.Generator().manual_seed(0))[0]
+    reg_cpu = register_pair(*split(f_cpu), cfg, samples=samples)
+    reg_gpu = register_pair(*split(f_gpu), cfg, samples=samples.to(cuda))
+    assert bool(reg_gpu.success) == bool(reg_cpu.success)
+    assert int(reg_gpu.n_inliers) == int(reg_cpu.n_inliers)
+    torch.testing.assert_close(reg_gpu.R.cpu(), reg_cpu.R, atol=1e-4, rtol=0)
+    torch.testing.assert_close(reg_gpu.t.cpu(), reg_cpu.t, atol=1e-4, rtol=0)
