@@ -12,6 +12,7 @@ from typing import List
 import numpy as np
 import torch
 
+from ..backend.refine_runner import RefinementFeatures
 from ..config import PipelineConfig
 from .. import setup_device
 from ..geometry.kitti_pose import chain_poses
@@ -44,6 +45,7 @@ def run_odometry_windowed(scans, respond_net, encoder, R_tr=None, t_tr=None,
                           cfg: PipelineConfig = PipelineConfig(),
                           window: int = 16, seed: int = 0,
                           keep_features: bool = False,
+                          keep_refine_features: bool = False,
                           samples=None) -> tuple:
     """Windowed frame-to-frame odometry over ``scans``, a sequence of
     ``(pts (N, 4), mask (N,))`` numpy arrays or tensors.
@@ -59,7 +61,10 @@ def run_odometry_windowed(scans, respond_net, encoder, R_tr=None, t_tr=None,
     ``torch.Generator`` seeded with ``seed``.
 
     Returns ``(OdometryResult, features_or_None)``; ``features`` stacks the
-    kept frames' ``FrameFeatures`` on a leading axis of length n.
+    kept frames' ``FrameFeatures`` on a leading axis of length n.  With
+    ``keep_refine_features`` it returns ``(OdometryResult, features,
+    refine_features)``, the frames' ``RefinementFeatures`` stacked the
+    same way.
     """
     if R_tr is None:
         R_tr = np.eye(3)
@@ -70,7 +75,8 @@ def run_odometry_windowed(scans, respond_net, encoder, R_tr=None, t_tr=None,
         raise ValueError("odometry needs at least two scans")
     device = setup_device(next(respond_net.parameters()).device)
     generator = torch.Generator(device=device).manual_seed(seed)
-    process = make_sequence_processor(cfg)
+    keep_features = keep_features or keep_refine_features
+    process = make_sequence_processor(cfg, with_refine=keep_refine_features)
 
     rel_Rs = np.zeros((n - 1, 3, 3))
     rel_ts = np.zeros((n - 1, 3))
@@ -79,6 +85,7 @@ def run_odometry_windowed(scans, respond_net, encoder, R_tr=None, t_tr=None,
     ths = np.zeros((n - 1,), np.float32)
     pairs: List = [None] * (n - 1)
     feat_windows: List = []
+    ref_windows: List = []
 
     for start in window_starts(n, window):
         stop = min(start + window, n)
@@ -90,8 +97,8 @@ def run_odometry_windowed(scans, respond_net, encoder, R_tr=None, t_tr=None,
         if samples is not None:
             win_samples = tuple(torch.as_tensor(s[start:stop - 1])
                                 for s in samples)
-        feats, regs = process(respond_net, encoder, pts, msk, generator,
-                              win_samples)
+        out = process(respond_net, encoder, pts, msk, generator, win_samples)
+        feats, regs = out[0], out[-1]
         R_all = regs.R.double().cpu().numpy()
         t_all = regs.t.double().cpu().numpy()
         s_all = regs.success.cpu().numpy()
@@ -120,10 +127,12 @@ def run_odometry_windowed(scans, respond_net, encoder, R_tr=None, t_tr=None,
         if keep_features:
             j0 = 0 if start == 0 else 1         # drop the overlap frame
             feat_windows.append(FrameFeatures(*(x[j0:] for x in feats)))
+            if keep_refine_features:
+                ref_windows.append(RefinementFeatures(
+                    *(x[j0:] for x in out[1])))
 
-    feats_out = None
-    if keep_features:
-        feats_out = FrameFeatures(*(torch.cat(xs) for xs in zip(*feat_windows)))
+    cat = lambda cls, windows: cls(*(torch.cat(xs) for xs in zip(*windows)))
+    feats_out = cat(FrameFeatures, feat_windows) if keep_features else None
 
     # constant-velocity fallback on failures
     prevR, prevT = np.eye(3), np.zeros(3)
@@ -137,4 +146,6 @@ def run_odometry_windowed(scans, respond_net, encoder, R_tr=None, t_tr=None,
     result = OdometryResult(
         poses=poses, rel_Rs=rel_Rs, rel_ts=rel_ts, successes=succ,
         n_inliers=n_inl, inlier_pairs=pairs, thresholds=ths)
+    if keep_refine_features:
+        return result, feats_out, cat(RefinementFeatures, ref_windows)
     return result, feats_out

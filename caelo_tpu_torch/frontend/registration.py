@@ -3,7 +3,8 @@
 
   scan -> spherical ring -> respond net -> NMS top-k (K1) -> voxel pyramid
   -> 3-scale bit-table patches (K2) -> encoder -> 60-dim descriptors ->
-  NN matching -> batched RANSAC -> refit pose.
+  NN matching -> batched RANSAC -> refit pose; with the refinement
+  features (extended keypoints, planar points) from the same NMS run.
 
 Registration is batched over leading axes of the features, so a window's
 consecutive pairs register in one call.
@@ -14,6 +15,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..backend.refine_runner import refinement_features
 from ..config import PipelineConfig
 from ..models.patch_encoder import PatchEncoder
 from ..models.respond_net import RespondLayer
@@ -50,17 +52,12 @@ def stack_features(feats) -> FrameFeatures:
 
 
 @torch.no_grad()
-def extract_frame_features(respond_net: RespondLayer, encoder: PatchEncoder,
-                           pts: torch.Tensor, mask: torch.Tensor,
-                           cfg: PipelineConfig = PipelineConfig()
-                           ) -> FrameFeatures:
-    """Full per-frame front end: padded scan ``(N, 4)`` + mask ``(N,)`` ->
-    keypoints + descriptors, on the device of ``pts``.
-
-    ``encoder`` must carry ``cfg``'s activation names.  Only
-    ``compute_dtype='float32'`` is ported; on a card, call
-    ``caelo_tpu_torch.setup_device`` first so the convs run in full float32
-    (``run_odometry_windowed`` does).
+def _extract(respond_net: RespondLayer, encoder: PatchEncoder,
+             pts: torch.Tensor, mask: torch.Tensor, cfg: PipelineConfig,
+             with_refine: bool):
+    """Shared front-end body: padded scan -> keypoints + descriptors, and
+    (``with_refine``) the refinement features from the same projection,
+    respond map and NMS run (``caelo_tpu/frontend/registration.py:55-109``).
     """
     if cfg.compute_dtype != "float32":
         raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: only float32 "
@@ -71,8 +68,12 @@ def extract_frame_features(respond_net: RespondLayer, encoder: PatchEncoder,
     image, counter = project_to_spherical_ring(pts, mask, cfg.sensor)
     net_in = model_input(image, cfg.sensor).permute(2, 0, 1)[None]
     planes = respond_net(net_in)[0]                    # (8, H, W) NCHW planes
-    key_pts, key_pixels, key_mask, _ = select_keypoints_planes(
+    key_pts, key_pixels, key_mask, saliency = select_keypoints_planes(
         image, counter, planes, cfg.sensor, cfg.keypoint)
+    ref_feats = None
+    if with_refine:
+        ref_feats = refinement_features(pts, mask, image, counter, key_pixels,
+                                        key_mask, saliency, cfg)
     pyramid = voxelize(pts[:, :3], mask, cfg.voxel)
     patches = extract_patches(key_pts, key_mask, pyramid, cfg.voxel)
     # one encoder pass over all 3 scales stacked on the batch axis, in
@@ -87,7 +88,32 @@ def extract_frame_features(respond_net: RespondLayer, encoder: PatchEncoder,
     descriptors = torch.cat([codes[i * K:(i + 1) * K]
                              for i in range(len(patches))], -1)
     descriptors = torch.where(key_mask[:, None], descriptors, 0.0)
-    return FrameFeatures(key_pts, descriptors, key_mask, key_pixels)
+    return FrameFeatures(key_pts, descriptors, key_mask, key_pixels), ref_feats
+
+
+def extract_frame_features(respond_net: RespondLayer, encoder: PatchEncoder,
+                           pts: torch.Tensor, mask: torch.Tensor,
+                           cfg: PipelineConfig = PipelineConfig()
+                           ) -> FrameFeatures:
+    """Full per-frame front end: padded scan ``(N, 4)`` + mask ``(N,)`` ->
+    keypoints + descriptors, on the device of ``pts``.
+
+    ``encoder`` must carry ``cfg``'s activation names.  Only
+    ``compute_dtype='float32'`` is ported; on a card, call
+    ``caelo_tpu_torch.setup_device`` first so the convs run in full float32
+    (``run_odometry_windowed`` does).
+    """
+    return _extract(respond_net, encoder, pts, mask, cfg, False)[0]
+
+
+def extract_frame_features_full(respond_net: RespondLayer,
+                                encoder: PatchEncoder, pts: torch.Tensor,
+                                mask: torch.Tensor,
+                                cfg: PipelineConfig = PipelineConfig()):
+    """``extract_frame_features`` and the frame's ``RefinementFeatures``
+    from one projection / respond / NMS pass: returns ``(FrameFeatures,
+    RefinementFeatures)``."""
+    return _extract(respond_net, encoder, pts, mask, cfg, True)
 
 
 @torch.no_grad()

@@ -1,12 +1,46 @@
 """KITTI pose-row bookkeeping, host float64 numpy.
 
-Copied from ``caelo_tpu/geometry/kitti_pose.py:57-119``, a module that
-imports JAX: pose chains are never computed in device float32 (a chained
-product of thousands of 4x4s drifts measurably off SO(3) there).
+Copied from ``caelo_tpu/geometry/kitti_pose.py``, a module that imports
+JAX: pose chains are never computed in device float32 (a chained product
+of thousands of 4x4s drifts measurably off SO(3) there).
 """
 from __future__ import annotations
 
 import numpy as np
+
+
+def _inverse(R, t):
+    Ri = np.swapaxes(R, -1, -2)
+    return Ri, -np.einsum("...ij,...j->...i", Ri, t)
+
+
+def _compose(R1, t1, R2, t2):
+    """Apply ``(R2, t2)`` first, then ``(R1, t1)``."""
+    return R1 @ R2, np.einsum("...ij,...j->...i", R1, t2) + t1
+
+
+def poses_to_rt(poses):
+    """``(..., 12)`` pose rows -> ``(R (..., 3, 3), t (..., 3))``."""
+    P = np.asarray(poses, np.float64).reshape(np.shape(poses)[:-1] + (3, 4))
+    return P[..., :, 0:3], P[..., :, 3]
+
+
+def rel_pose_cam(pose0, pose1):
+    """Camera-frame relative transform frame 1 -> frame 0."""
+    R0, t0 = poses_to_rt(pose0)
+    R1, t1 = poses_to_rt(pose1)
+    return _compose(*_inverse(R0, t0), R1, t1)
+
+
+def rel_pose_lidar(pose0, pose1, R_tr, t_tr):
+    """Lidar-frame relative transform frame 1 -> frame 0, conjugated with
+    the camera-lidar calibration: ``rel_l = Tr^-1 * pose0^-1 * pose1 *
+    Tr``."""
+    R_tr = np.asarray(R_tr, np.float64)
+    t_tr = np.asarray(t_tr, np.float64)
+    Rc, tc = rel_pose_cam(pose0, pose1)
+    R, t = _compose(Rc, tc, R_tr, t_tr)
+    return _compose(*_inverse(R_tr, t_tr), R, t)
 
 
 def lidar_rel_to_cam(relR, relT, R_tr, t_tr):

@@ -1,8 +1,9 @@
-"""Batched rotation algebra and the Horn rigid solve in PyTorch.
+"""Batched rigid-transform algebra and the Horn rigid solve in PyTorch.
 
 Port of the parts of ``caelo_tpu/geometry/se3.py`` that the front-end
-window runs.  Shapes are polymorphic over leading batch dimensions, as in
-the JAX module.
+window and the ICP refinement run.  Shapes are polymorphic over leading
+batch dimensions, as in the JAX module.  A transform is ``(R, t)``,
+``(..., 3, 3)`` and ``(..., 3)``, mapping ``x -> R x + t``.
 """
 from __future__ import annotations
 
@@ -14,6 +15,42 @@ RADIAN2DEGREE = 180.0 / math.pi
 
 # Jacobi rotation order of one sweep (caelo_tpu/geometry/se3.py:202)
 _PAIRS = [(0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3)]
+
+
+def _rotate(R: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``R v`` for vectors ``v (..., 3)``, as a broadcast product and sum."""
+    return (R * v[..., None, :]).sum(-1)
+
+
+def apply(R: torch.Tensor, t: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply ``x -> R x + t`` to points of shape ``(..., N, 3)``."""
+    return _rotate(R[..., None, :, :], pts) + t[..., None, :]
+
+
+def compose(R1, t1, R2, t2):
+    """The transform equal to applying ``(R2, t2)`` first, then ``(R1,
+    t1)``.
+
+    The algebra here is broadcast products and sums, never a matmul, so it
+    runs in full float32 whatever the TF32 settings: pose composition
+    chains, and the JAX version asks for HIGHEST matmul precision for the
+    same reason."""
+    R = (R1[..., :, :, None] * R2[..., None, :, :]).sum(-2)
+    return R, _rotate(R1, t2) + t1
+
+
+def inverse(R, t):
+    Rin = R.transpose(-1, -2)
+    return Rin, -_rotate(Rin, t)
+
+
+def rotmat_to_euler_xyz_deg(R: torch.Tensor) -> torch.Tensor:
+    """XYZ Euler angles in degrees (``caelo_tpu/geometry/se3.py:62-70``)."""
+    ax = torch.atan2(R[..., 2, 1], R[..., 2, 2])
+    ay = torch.atan2(-R[..., 2, 0],
+                     torch.sqrt(R[..., 2, 1] ** 2 + R[..., 2, 2] ** 2))
+    az = torch.atan2(R[..., 1, 0], R[..., 0, 0])
+    return torch.stack([ax, ay, az], -1) * RADIAN2DEGREE
 
 
 def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:

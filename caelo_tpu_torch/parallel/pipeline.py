@@ -9,26 +9,35 @@ from __future__ import annotations
 
 import torch
 
+from ..backend.refine_runner import RefinementFeatures
 from ..config import PipelineConfig
 from ..frontend.registration import (FrameFeatures, PairRegistration,
-                                     extract_frame_features, register_pair,
-                                     register_pair_with_prior, stack_features)
+                                     extract_frame_features,
+                                     extract_frame_features_full,
+                                     register_pair, register_pair_with_prior,
+                                     stack_features)
 
 
-def make_sequence_processor(cfg: PipelineConfig = PipelineConfig()):
+def make_sequence_processor(cfg: PipelineConfig = PipelineConfig(),
+                            with_refine: bool = False):
     """Returns ``process(respond_net, encoder, pts (B, N, 4), mask (B, N),
     generator=None, samples=None) -> (FrameFeatures batch of B,
-    PairRegistration batch of B-1)``.
+    PairRegistration batch of B-1)``, or with ``with_refine`` ``->
+    (FrameFeatures, RefinementFeatures, PairRegistration)``: the
+    refinement features come from the same projection / respond / NMS
+    results, with no second front-end pass.
 
     ``samples``, if given, is ``(pass1, pass2)``: ``(B-1, H, S)`` RANSAC
     pair indices for the plain pass and for the motion-prior retry.
     """
+    extract = extract_frame_features_full if with_refine else (
+        lambda *args: (extract_frame_features(*args), None))
 
     def process(respond_net, encoder, pts, mask, generator=None,
                 samples=None):
-        feats = stack_features([
-            extract_frame_features(respond_net, encoder, pts[b], mask[b], cfg)
-            for b in range(pts.shape[0])])
+        per_frame = [extract(respond_net, encoder, pts[b], mask[b], cfg)
+                     for b in range(pts.shape[0])]
+        feats = stack_features([f for f, _ in per_frame])
         f0 = FrameFeatures(*(x[:-1] for x in feats))
         f1 = FrameFeatures(*(x[1:] for x in feats))
         s1, s2 = (None, None) if samples is None else samples
@@ -52,6 +61,10 @@ def make_sequence_processor(cfg: PipelineConfig = PipelineConfig()):
             regs = PairRegistration(*(
                 torch.where(use2.view(-1, *[1] * (a.dim() - 1)), a, b)
                 for a, b in zip(regs2, regs)))
+        if with_refine:
+            ref_feats = RefinementFeatures(*(
+                torch.stack(xs) for xs in zip(*(r for _, r in per_frame))))
+            return feats, ref_feats, regs
         return feats, regs
 
     return process

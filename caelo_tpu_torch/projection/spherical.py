@@ -67,7 +67,52 @@ def project_to_spherical_ring(pts: torch.Tensor, mask: torch.Tensor,
     return image, counter[:H * W].reshape(H, W)
 
 
+def pixel_to_point(rows: torch.Tensor, cols: torch.Tensor,
+                   values: torch.Tensor, cfg: SensorConfig = SensorConfig()):
+    """Inverse projection of (row, col, range) -> (x, y, z)."""
+    img_bottom = cfg.img_h - cfg.vertical_pixel_offset
+    beta = (img_bottom - rows) * cfg.vertical_res
+    alpha = math.pi - cols * cfg.azimuth_res
+    z = values * torch.sin(beta)
+    rho = values * torch.cos(beta)
+    return torch.stack([rho * torch.cos(alpha), rho * torch.sin(alpha), z], -1)
+
+
 def model_input(image: torch.Tensor, cfg: SensorConfig = SensorConfig()):
     """Crop the ring image to the respond-net input window: rows
     [0, n_lines), cols [0, img_w - crop), channels x, y, z."""
     return image[:cfg.n_lines, :cfg.model_w, 0:3]
+
+
+def extend_keypoints(image: torch.Tensor, counter: torch.Tensor,
+                     key_pixels: torch.Tensor, key_mask: torch.Tensor,
+                     cfg: SensorConfig = SensorConfig(), radius: int = 6):
+    """Gather the occupied pixels of a ``(2r+1)^2`` window around each key
+    pixel (port of ``caelo_tpu/projection/spherical.py:109-146``).
+
+    A pixel covered by several windows belongs to the lowest keypoint index
+    whose window covers it, elected by one int32 scatter-min into H*W+1
+    slots (slot H*W collects the unoccupied and masked entries).  Masked
+    keypoints own nothing.
+
+    Returns ``nbr_pts (K, (2r+1)^2, 3)`` and ``nbr_mask (K, (2r+1)^2)``.
+    """
+    H, W = cfg.img_h, cfg.img_w
+    K = key_pixels.shape[0]
+    dev = key_pixels.device
+    dr = torch.arange(-radius, radius + 1, device=dev)
+    oy, ox = torch.meshgrid(dr, dr, indexing="ij")
+    rows = key_pixels[:, None, 0].long() + oy.reshape(1, -1)      # (K, W2)
+    cols = key_pixels[:, None, 1].long() + ox.reshape(1, -1)
+    inb = (rows >= 0) & (rows < H) & (cols >= 0) & (cols < W)
+    rc = torch.where(inb, rows, 0)
+    cc = torch.where(inb, cols, 0)
+    occ = (counter[rc, cc] > 0) & inb & key_mask[:, None]
+    flat = torch.where(occ, rc * W + cc, H * W)
+    kid = torch.arange(K, dtype=torch.int32, device=dev)
+    owner = torch.full((H * W + 1,), K, dtype=torch.int32, device=dev)
+    owner.scatter_reduce_(0, flat.reshape(-1),
+                          kid[:, None].expand_as(flat).reshape(-1), "amin")
+    mine = occ & (owner[flat] == kid[:, None])
+    nbr_pts = image[rc, cc, 0:3]
+    return torch.where(mine[..., None], nbr_pts, 0.0), mine

@@ -11,7 +11,13 @@ Phases (each raises on failure; the script then exits nonzero):
 5. the front-end odometry window at the full default ``PipelineConfig()``
    on 17 synthetic scans with random weights: run A (default config, K1)
    and run B (``use_pallas_plane_gather=True``, K1 + K2), launch counts,
-   pose sanity, A/B identity, one frame against the all-plain path, times.
+   pose sanity, A/B identity, one frame against the all-plain path, times;
+6. refinement: the window with its refinement features (K1 + K2), hybrid
+   ICP recovering the known motion of 16 pairs from a perturbed start, one
+   frame's refinement features against the all-plain path, and
+   ``run_full_pipeline`` (front end, de-jump, ICP refinement) at the
+   default config on the 17 scans with scan 8 thinned to 40 % (unhealthy,
+   so its pairs are refined), launch counts, pose sanity, times.
 
 Prints a ``{"kernels": [...]}`` JSON line, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Without a CUDA device
@@ -89,9 +95,10 @@ def check_saliency(planes, occ, what):
     return err
 
 
-def make_scans(cfg):
+def make_scans(cfg, thin=()):
     """Synthetic scans as bench.py makes them: the sensor translating
-    through one scene, padded to cfg.max_points."""
+    through one scene, padded to cfg.max_points; scans in ``thin`` keep
+    40 % of their points."""
     from caelo_tpu_torch.data.synthetic import (make_scene, range_filter,
                                                 sample_scene_points)
     from caelo_tpu_torch.ops.masking import pad_points
@@ -104,6 +111,8 @@ def make_scans(cfg):
         t = np.array([1.2 * i, 0.05 * i, 0.0])
         local = range_filter((world - t).astype(np.float32), cfg.sensor)
         local = local + rng.normal(0, 0.005, local.shape).astype(np.float32)
+        if i in thin:
+            local = local[rng.uniform(size=len(local)) < 0.4]
         refl = rng.uniform(0, 1, (local.shape[0], 1)).astype(np.float32)
         scans.append(pad_points(np.concatenate([local, refl], 1),
                                 cfg.max_points))
@@ -135,6 +144,67 @@ def compare_frames(fa, fb, sal, kth_score, what):
         f"descriptor max_abs_err {err:.3e}")
 
 
+def check_so3(R, what):
+    """Rotations ``R (n, 3, 3)`` on SO(3) to 1e-4: returns the largest
+    ``|R^T R - I|`` and ``|det R - 1|``."""
+    orth = np.abs(np.einsum("nji,njk->nik", R, R) - np.eye(3)).max()
+    det = np.abs(np.linalg.det(R) - 1.0).max()
+    if orth > 1e-4 or det > 1e-4:
+        raise AssertionError(f"{what}: rel R off SO(3) (orth {orth:.2e}, "
+                             f"det {det:.2e})")
+    return orth, det
+
+
+def check_rel_rotations(poses, what):
+    """Finite pose rows whose consecutive relative rotations lie on SO(3)."""
+    if not np.isfinite(poses).all():
+        raise AssertionError(f"{what}: non-finite poses")
+    P = poses.reshape(-1, 3, 4)
+    return check_so3(np.einsum("nji,njk->nik", P[:-1, :, :3], P[1:, :, :3]),
+                     what)
+
+
+def yaw(deg):
+    c, s = np.cos(np.radians(deg)), np.sin(np.radians(deg))
+    return np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+
+
+def compare_refinement_features(fk, fp, rk, rp, what):
+    """Kernel-path vs plain-path refinement features of one frame: where the
+    two keypoint lists agree the extended clouds are identical; planar rows
+    agree to 1e-4."""
+    import torch
+
+    same_kp = torch.equal(fk.key_pixels[fk.mask], fp.key_pixels[fp.mask])
+    if same_kp and not (torch.equal(rk.ext_mask, rp.ext_mask)
+                        and torch.equal(rk.ext_pts, rp.ext_pts)):
+        raise AssertionError(f"{what}: extended clouds differ on equal "
+                             "keypoints")
+    if not torch.equal(rk.planar_mask, rp.planar_mask):
+        raise AssertionError(f"{what}: planar masks differ")
+    torch.testing.assert_close(rk.planar, rp.planar, atol=1e-4, rtol=0)
+    err = float((rk.planar - rp.planar).abs().max())
+    log(f"{what}: keypoint lists equal {same_kp}, extended points "
+        f"{int(rk.ext_mask.sum())}, planar rows {int(rk.planar_mask.sum())},"
+        f" planar max_abs_err {err:.3e}")
+
+
+def timed_ms(fn, reps):
+    """Host wall-clock ms per call of ``fn``, synchronised, after one warm
+    call; returns the list of times."""
+    import torch
+
+    fn()
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
 def main():
     import torch
 
@@ -143,9 +213,12 @@ def main():
                          "the card and does not fall back to the CPU")
 
     from caelo_tpu_torch import _build, setup_device
+    from caelo_tpu_torch.backend.refine_runner import (
+        RefinementFeatures, make_batched_icp_fn, refine_pairs_batched)
     from caelo_tpu_torch.config import PipelineConfig
     from caelo_tpu_torch.frontend.odometry import run_odometry_windowed
-    from caelo_tpu_torch.frontend.registration import extract_frame_features
+    from caelo_tpu_torch.frontend.registration import (
+        extract_frame_features, extract_frame_features_full)
     from caelo_tpu_torch.models.weights_io import (build_models,
                                                    random_flax_params)
     from caelo_tpu_torch.ops.nms import select_keypoints_planes
@@ -153,6 +226,7 @@ def main():
                                                   gather_planes_plain)
     from caelo_tpu_torch.ops.saliency import saliency_map, saliency_map_plain
     from caelo_tpu_torch.parallel.pipeline import make_sequence_processor
+    from caelo_tpu_torch.pipeline import run_full_pipeline
     from caelo_tpu_torch.projection.spherical import (
         model_input, project_to_spherical_ring)
     from caelo_tpu_torch.voxel.grid import extract_patches, voxelize
@@ -263,12 +337,7 @@ def main():
     for tag, res in (("A", res_a), ("B", res_b)):
         if not np.isfinite(res.poses).all():
             raise AssertionError(f"run {tag}: non-finite poses")
-        R = res.rel_Rs
-        orth = np.abs(np.einsum("nji,njk->nik", R, R) - np.eye(3)).max()
-        det = np.abs(np.linalg.det(R) - 1.0).max()
-        if orth > 1e-4 or det > 1e-4:
-            raise AssertionError(f"run {tag}: rel R off SO(3) (orth {orth:.2e}"
-                                 f", det {det:.2e})")
+        orth, det = check_so3(res.rel_Rs, f"run {tag}")
         log(f"run {tag}: pair successes {int(res.successes.sum())}/"
             f"{len(res.successes)} {res.successes.astype(int).tolist()}, "
             f"inliers {res.n_inliers.tolist()}, |R^T R - I| {orth:.2e}, "
@@ -325,6 +394,124 @@ def main():
         f"ms, median {win_s * 1e3:.3f} ms -> {WINDOW / win_s:.3f} frames/s")
     log(f"peak device memory: "
         f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB")
+
+    # ---- 6. refinement
+    # 6a: the window with refinement features, both kernels
+    torch.cuda.reset_peak_memory_stats()
+    saliency_map.launches = 0
+    gather_planes.launches = 0
+    res_r, _, ref = run_odometry_windowed(
+        scans, respond_net, encoder, cfg=cfg_b, window=WINDOW, seed=0,
+        keep_refine_features=True)
+    torch.cuda.synchronize()
+    launches_r = {"saliency_map": saliency_map.launches,
+                  "gather_planes": gather_planes.launches}
+    log(f"6a window with refinement features: launches {launches_r}")
+    if (launches_r["saliency_map"] < N_SCANS
+            or launches_r["gather_planes"] <= 0):
+        raise AssertionError("refinement window did not run both kernels")
+    if not np.array_equal(res_r.rel_Rs, res_b.rel_Rs):
+        raise AssertionError("refinement window changed the odometry")
+    E, P = cfg.icp.max_points, cfg.icp.max_planar
+    if (tuple(ref.ext_pts.shape) != (N_SCANS, E, 3)
+            or tuple(ref.planar.shape) != (N_SCANS, P, 6)):
+        raise AssertionError(f"refinement features of shapes "
+                             f"{tuple(ref.ext_pts.shape)}, "
+                             f"{tuple(ref.planar.shape)}")
+    n_ext = ref.ext_mask.sum(1).cpu().numpy()
+    n_pl = ref.planar_mask.sum(1).cpu().numpy()
+    log(f"refinement features {tuple(ref.ext_pts.shape)} / "
+        f"{tuple(ref.planar.shape)}: extended points per frame "
+        f"{n_ext.tolist()}, planar rows per frame {n_pl.tolist()}")
+    if not (n_ext.all() and n_pl.all()):
+        raise AssertionError("a frame has no extended or planar points")
+
+    # 6b: ICP recovers the known motion (R = I, t = (1.2, 0.05, 0)) of the
+    # 16 consecutive pairs from a start 0.3 m and 1 deg of yaw off
+    gt_t = np.array([1.2, 0.05, 0.0])
+    off = np.array([0.3, 0.0, 0.0])
+    relRs = np.stack([yaw(1.0 if k % 2 else -1.0) for k in range(WINDOW)])
+    relTs = np.stack([gt_t + (off if k % 2 else -off) for k in range(WINDOW)])
+    f_i = RefinementFeatures(*(x[:-1] for x in ref))
+    f_j = RefinementFeatures(*(x[1:] for x in ref))
+    icp = refine_pairs_batched(
+        f_i, f_j, torch.as_tensor(relRs, dtype=torch.float32, device=dev),
+        torch.as_tensor(relTs, dtype=torch.float32, device=dev), cfg)
+    dR = icp.R.double().cpu().numpy()
+    ok = icp.success.cpu().numpy()
+    newR = dR @ relRs
+    newT = np.einsum("nij,nj->ni", dR, relTs) + icp.t.double().cpu().numpy()
+    t_err = np.linalg.norm(newT - gt_t, axis=1)
+    r_err = np.degrees(np.arccos(np.clip(
+        (np.trace(newR, axis1=1, axis2=2) - 1.0) / 2.0, -1.0, 1.0)))
+    log(f"6b ICP from a 0.3 m / 1 deg start: success {int(ok.sum())}/"
+        f"{WINDOW}, iters {icp.iters.cpu().tolist()}, translation error "
+        f"{np.round(t_err, 4).tolist()} m, rotation error "
+        f"{np.round(r_err, 4).tolist()} deg, residual "
+        f"{np.round(icp.init_res.double().cpu().numpy(), 4).tolist()} -> "
+        f"{np.round(icp.final_res.double().cpu().numpy(), 4).tolist()} m")
+    if ok.sum() < 12:
+        raise AssertionError(f"ICP succeeded on {int(ok.sum())}/16 pairs")
+    if t_err[ok].max() > 0.05 or r_err[ok].max() > 0.2:
+        raise AssertionError("ICP missed the known motion")
+    icp_fn = make_batched_icp_fn(ref, cfg)
+    ii = np.arange(WINDOW, dtype=np.int32)
+    icp_times = timed_ms(lambda: icp_fn(ii, ii + 1, relRs, relTs), 3)
+    log(f"warm 16-span make_batched_icp_fn call (thr_scale 1): "
+        f"{[round(t, 3) for t in icp_times]} ms, median "
+        f"{float(np.median(icp_times)):.3f} ms")
+
+    # 6c: one frame's refinement features, kernel path against plain path
+    fk, rk = extract_frame_features_full(respond_net, encoder, pts0, msk0,
+                                         cfg_b)
+    fp, rp = extract_frame_features_full(respond_net, encoder, pts0, msk0,
+                                         cfg_plain)
+    compare_refinement_features(fk, fp, rk, rp,
+                                "frame 0 refinement features, kernel vs plain")
+
+    # window processor with and without refinement features, warm
+    process_r = make_sequence_processor(cfg, with_refine=True)
+    win_ms = timed_ms(lambda: process(respond_net, encoder, pts_w, msk_w,
+                                      gen), WINDOW_REPS)
+    win_r_ms = timed_ms(lambda: process_r(respond_net, encoder, pts_w, msk_w,
+                                          gen), WINDOW_REPS)
+    log(f"warm {WINDOW}-frame window: without refinement features "
+        f"{[round(t, 3) for t in win_ms]} ms, median "
+        f"{float(np.median(win_ms)):.3f}; with "
+        f"{[round(t, 3) for t in win_r_ms]} ms, median "
+        f"{float(np.median(win_r_ms)):.3f}")
+
+    # 6d: the full pipeline through refinement, scan 8 unhealthy
+    scans_thin = make_scans(cfg, thin=(8,))
+    saliency_map.launches = 0
+    gather_planes.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = run_full_pipeline(scans_thin, respond_net, encoder, cfg=cfg)
+    torch.cuda.synchronize()
+    t_full = time.perf_counter() - t0
+    launches_f = {"saliency_map": saliency_map.launches,
+                  "gather_planes": gather_planes.launches}
+    for name in ("poses_raw", "poses_dejumped", "poses_refined",
+                 "poses_final"):
+        orth, det = check_rel_rotations(getattr(full, name), name)
+        log(f"{name}: |R^T R - I| {orth:.2e}, |det - 1| {det:.2e}")
+    st = full.refine_stats
+    log(f"6d run_full_pipeline: {t_full * 1e3:.1f} ms for {N_SCANS} scans; "
+        f"pair successes {full.odometry.successes.astype(int).tolist()}; "
+        f"dejumped {full.dejumped_frames}; refined {st.refined}, failed "
+        f"{st.failed}, rejected {st.rejected}, skipped {st.skipped}; "
+        f"launches {launches_f}")
+    if not (st.refined or st.failed or st.rejected):
+        raise AssertionError("refinement solved no span")
+    if launches_f["saliency_map"] < N_SCANS:
+        raise AssertionError("run_full_pipeline did not run K1 per frame")
+    moved = np.abs(full.poses_refined - full.poses_dejumped).max()
+    log(f"refinement moved the poses by up to {moved:.4f}; peak device "
+        f"memory of phase 6: "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB")
+    for name in launches:
+        launches[name] += launches_r[name] + launches_f[name]
 
     kernels = [
         {"name": "saliency_map", "route": "cuda",

@@ -105,3 +105,45 @@ def test_masking_matches_jax(rng):
                             size, fill=-1)
         for a, b in zip(out, ref):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_se3_transform_algebra_matches_jax(rng):
+    """apply, compose, inverse and XYZ Euler angles on float32 batches:
+    within 1e-6."""
+    B, N = 4, 9
+    R1, R2 = (_rot(rng, B).astype(np.float32) for _ in range(2))
+    t1, t2 = (rng.normal(size=(B, 3)).astype(np.float32) for _ in range(2))
+    pts = rng.normal(size=(B, N, 3)).astype(np.float32) * 5
+    J = lambda *a: [jnp.asarray(x) for x in a]
+    T = lambda *a: [torch.from_numpy(x) for x in a]
+    np.testing.assert_allclose(tse3.apply(*T(R1, t1, pts)).numpy(),
+                               np.asarray(jse3.apply(*J(R1, t1, pts))),
+                               atol=1e-6, rtol=0)
+    for a, b in zip(tse3.compose(*T(R1, t1, R2, t2)),
+                    jse3.compose(*J(R1, t1, R2, t2))):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6)
+    for a, b in zip(tse3.inverse(*T(R1, t1)), jse3.inverse(*J(R1, t1))):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6)
+    np.testing.assert_allclose(
+        tse3.rotmat_to_euler_xyz_deg(*T(R1)).numpy(),
+        np.asarray(jse3.rotmat_to_euler_xyz_deg(*J(R1))), atol=1e-6)
+
+
+def test_rel_poses_match_jax(rng):
+    """poses_to_rt, rel_pose_cam and rel_pose_lidar in host float64,
+    against JAX under x64: within 1e-12."""
+    n = 5
+    poses = np.concatenate([_rot(rng, n), rng.normal(size=(n, 3, 1)) * 10],
+                           2).reshape(n, 12)
+    R_tr, t_tr = _rot(rng, 1)[0], rng.normal(size=3)
+    for a, b in zip(tkp.poses_to_rt(poses),
+                    jkp.poses_to_rt(jnp.asarray(poses))):
+        np.testing.assert_array_equal(a, np.asarray(b))
+    p0, p1 = poses[:-1], poses[1:]
+    for a, b in zip(tkp.rel_pose_cam(p0, p1),
+                    jkp.rel_pose_cam(jnp.asarray(p0), jnp.asarray(p1))):
+        np.testing.assert_allclose(a, np.asarray(b), atol=1e-12)
+    for a, b in zip(tkp.rel_pose_lidar(p0[1], p1[2], R_tr, t_tr),
+                    jkp.rel_pose_lidar(jnp.asarray(p0[1]), jnp.asarray(p1[2]),
+                                       jnp.asarray(R_tr), jnp.asarray(t_tr))):
+        np.testing.assert_allclose(a, np.asarray(b), atol=1e-12)

@@ -1,6 +1,7 @@
 """The port on a CUDA device: both CUDA kernels against their plain versions
-at the main path's shapes, and one frame's features and registration on the
-card against the CPU path.  Every test skips without a CUDA device.
+at the main path's shapes, one frame's features and registration, and the
+batched hybrid ICP, on the card against the CPU path.  Every test skips
+without a CUDA device.
 
 Imports torch and the port only, so the file also runs where JAX is absent
 (the repo's conftest imports JAX, hence ``--noconftest``):
@@ -14,7 +15,8 @@ import pytest
 import torch
 
 from caelo_tpu_torch import setup_device
-from caelo_tpu_torch.config import tiny_test_config
+from caelo_tpu_torch.backend.icp import icp_hybrid
+from caelo_tpu_torch.config import IcpConfig, tiny_test_config
 from caelo_tpu_torch.data.synthetic import (make_scene, range_filter,
                                             sample_scene_points)
 from caelo_tpu_torch.frontend.ransac import draw_samples
@@ -112,3 +114,43 @@ def test_frame_and_pair_on_card_match_cpu(cuda):
     assert int(reg_gpu.n_inliers) == int(reg_cpu.n_inliers)
     torch.testing.assert_close(reg_gpu.R.cpu(), reg_cpu.R, atol=1e-4, rtol=0)
     torch.testing.assert_close(reg_gpu.t.cpu(), reg_cpu.t, atol=1e-4, rtol=0)
+
+
+def _rot_z(deg):
+    c, s = np.cos(np.radians(deg)), np.sin(np.radians(deg))
+    return np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+
+
+def test_icp_hybrid_on_card_matches_cpu(cuda, rng):
+    """Hybrid ICP over 4 spans of two walls and the ground (2048 points,
+    512 planar rows, each span its own small motion), TF32 off: the same
+    success and trip counts, R and t within 1e-4, residuals within 1e-5 m,
+    as the CPU parity tests hold the port to JAX."""
+    S, n, p = 4, 2048, 512
+    args = [[] for _ in range(8)]
+    for s in range(S):
+        g = rng.uniform([-10, -10, 0], [10, 10, 0.01], (n // 2, 3))
+        w1 = rng.uniform([-10, 7.99, 0], [10, 8.01, 5], (n // 4, 3))
+        w2 = rng.uniform([6.99, -10, 0], [7.01, 10, 5], (n // 4, 3))
+        c0 = np.concatenate([g, w1, w2])
+        R, t = _rot_z(rng.uniform(-1, 1)), rng.uniform(-0.3, 0.3, 3)
+        q0 = np.concatenate([rng.uniform([-10, -10, 0], [10, 10, 0], (p, 3)),
+                             np.tile([0, 0, 1.0], (p, 1))], 1)
+        q1 = np.concatenate([(q0[:, :3] - t) @ R, q0[:, 3:] @ R], 1)
+        for k, a in enumerate((c0, np.arange(n) < n - 9 * s, (c0 - t) @ R,
+                               np.ones(n, bool), q0, np.ones(p, bool), q1,
+                               np.arange(p) < p - 5 * s)):
+            args[k].append(a)
+    host = [torch.from_numpy(a if a.dtype == bool else a.astype(np.float32))
+            for a in map(np.stack, args)]
+    cfg = IcpConfig()
+    res_cpu = icp_hybrid(*host, cfg)
+    res_gpu = icp_hybrid(*(a.to(cuda) for a in host), cfg)
+    assert bool(res_cpu.success.all())
+    assert torch.equal(res_gpu.success.cpu(), res_cpu.success)
+    assert torch.equal(res_gpu.iters.cpu(), res_cpu.iters)
+    torch.testing.assert_close(res_gpu.R.cpu(), res_cpu.R, atol=1e-4, rtol=0)
+    torch.testing.assert_close(res_gpu.t.cpu(), res_cpu.t, atol=1e-4, rtol=0)
+    for a, b in ((res_gpu.init_res, res_cpu.init_res),
+                 (res_gpu.final_res, res_cpu.final_res)):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=0)

@@ -185,6 +185,19 @@ net, enc = build_models(*random_flax_params(0), "cpu", cfg)
 f = extract_frame_features(net, enc, torch.from_numpy(pts),
                            torch.from_numpy(mask), cfg)
 assert f.descriptors.shape == (128, 60) and bool(f.mask.any())
+
+from caelo_tpu_torch.backend.refine_runner import (extract_refinement_features,
+                                                   refine_pairs_batched,
+                                                   stack_features)
+from caelo_tpu_torch.pipeline import run_full_pipeline
+
+rf = extract_refinement_features(net, torch.from_numpy(pts),
+                                 torch.from_numpy(mask), cfg)
+res = refine_pairs_batched(stack_features([rf, rf], [0, 1]),
+                           stack_features([rf, rf], [1, 0]),
+                           torch.eye(3)[None].repeat(2, 1, 1),
+                           torch.zeros(2, 3), cfg)
+assert bool(res.success.all()), res
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax")]
 assert not bad, bad
 print("ok")
@@ -192,8 +205,9 @@ print("ok")
 
 
 def test_port_imports_no_jax():
-    """A fresh interpreter imports the port and runs one tiny frame on the
-    CPU without JAX or Flax ever entering sys.modules."""
+    """A fresh interpreter imports the port, pipeline included, and runs
+    one tiny frame and a tiny batched ICP on the CPU without JAX or Flax
+    ever entering sys.modules."""
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", _HYGIENE], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
