@@ -7,5 +7,5 @@ could drift.  The device work enters through the ICP callables of
 ``caelo_tpu_torch.backend.refine_runner``.
 """
 from caelo_tpu.backend.refine import (  # noqa: F401
-    RefineStats, _row, _rt, fix_jump_poses, refine_odometry,
+    RefineStats, _all_rels, _row, _rt, fix_jump_poses, refine_odometry,
     refine_odometry_batched)

@@ -1,7 +1,9 @@
 """Batched rigid-transform algebra and the Horn rigid solve in PyTorch.
 
 Port of the parts of ``caelo_tpu/geometry/se3.py`` that the front-end
-window and the ICP refinement run.  Shapes are polymorphic over leading
+window, the ICP refinement, the burst rescue and the pose graph run.  The
+3x3 algebra is broadcast products and sums, full float32 whatever the TF32
+settings.  Shapes are polymorphic over leading
 batch dimensions, as in the JAX module.  A transform is ``(R, t)``,
 ``(..., 3, 3)`` and ``(..., 3)``, mapping ``x -> R x + t``.
 """
@@ -27,6 +29,13 @@ def apply(R: torch.Tensor, t: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     return _rotate(R[..., None, :, :], pts) + t[..., None, :]
 
 
+def matmul3(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """``A @ B`` for ``(..., 3, 3)`` matrices as a broadcast product and
+    sum: full float32 whatever the TF32 settings, where the JAX package
+    asks for HIGHEST matmul precision."""
+    return (A[..., :, :, None] * B[..., None, :, :]).sum(-2)
+
+
 def compose(R1, t1, R2, t2):
     """The transform equal to applying ``(R2, t2)`` first, then ``(R1,
     t1)``.
@@ -35,8 +44,21 @@ def compose(R1, t1, R2, t2):
     runs in full float32 whatever the TF32 settings: pose composition
     chains, and the JAX version asks for HIGHEST matmul precision for the
     same reason."""
-    R = (R1[..., :, :, None] * R2[..., None, :, :]).sum(-2)
-    return R, _rotate(R1, t2) + t1
+    return matmul3(R1, R2), _rotate(R1, t2) + t1
+
+
+def project_so3(R: torch.Tensor) -> torch.Tensor:
+    """Nearest-ish rotation by Gram-Schmidt on rows (batched): the cheap
+    re-orthonormalisation of a long device-side pose chain; exact for
+    inputs already in SO(3)."""
+    r0 = R[..., 0, :]
+    r0 = r0 / torch.clamp_min(
+        torch.linalg.vector_norm(r0, dim=-1, keepdim=True), 1e-20)
+    r1 = R[..., 1, :]
+    r1 = r1 - (r0 * r1).sum(-1, keepdim=True) * r0
+    r1 = r1 / torch.clamp_min(
+        torch.linalg.vector_norm(r1, dim=-1, keepdim=True), 1e-20)
+    return torch.stack([r0, r1, torch.linalg.cross(r0, r1)], -2)
 
 
 def inverse(R, t):
@@ -150,6 +172,49 @@ def solve_rigid_horn(p0: torch.Tensor, p1: torch.Tensor,
     R = quat_to_rotmat(q)
     t = mean0 - torch.einsum("...ij,...j->...i", R, mean1)
     return R, t
+
+
+def skew(w: torch.Tensor) -> torch.Tensor:
+    """``(..., 3)`` -> skew-symmetric ``(..., 3, 3)``."""
+    z = torch.zeros_like(w[..., 0])
+    rows = [[z, -w[..., 2], w[..., 1]],
+            [w[..., 2], z, -w[..., 0]],
+            [-w[..., 1], w[..., 0], z]]
+    return torch.stack([torch.stack(r, -1) for r in rows], -2)
+
+
+def exp_so3(w: torch.Tensor) -> torch.Tensor:
+    """Rodrigues: axis-angle ``(..., 3)`` -> rotation ``(..., 3, 3)``.
+
+    Taylor-safe near zero; the trig branch is evaluated at a safe argument
+    so its derivative stays finite where the Taylor branch is selected
+    (the pose-graph solve differentiates through both)."""
+    theta2 = (w * w).sum(-1, keepdim=True)[..., None]
+    safe = theta2 > 1e-12
+    t2s = torch.where(safe, theta2, 1.0)
+    theta = torch.sqrt(t2s)
+    K = skew(w)
+    A = torch.where(safe, torch.sin(theta) / theta, 1.0 - theta2 / 6.0)
+    B = torch.where(safe, (1.0 - torch.cos(theta)) / t2s,
+                    0.5 - theta2 / 24.0)
+    eye = torch.eye(3, dtype=w.dtype, device=w.device)
+    return eye + A * K + B * matmul3(K, K)
+
+
+def log_so3(R: torch.Tensor) -> torch.Tensor:
+    """Rotation ``(..., 3, 3)`` -> axis-angle ``(..., 3)`` (principal
+    branch), differentiable away from theta = pi."""
+    tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    c = torch.clamp((tr - 1.0) / 2.0, -1.0 + 1e-7, 1.0 - 1e-7)
+    theta = torch.arccos(c)
+    v = torch.stack([R[..., 2, 1] - R[..., 1, 2],
+                     R[..., 0, 2] - R[..., 2, 0],
+                     R[..., 1, 0] - R[..., 0, 1]], -1)
+    safe = theta > 1e-7
+    s = torch.where(safe, 2.0 * torch.sin(theta), 1.0)   # safe denominator
+    scale = torch.where(safe[..., None], (theta / s)[..., None],
+                        0.5 + theta[..., None] ** 2 / 12.0)
+    return v * scale
 
 
 def rotation_geodesic_deg(R0: torch.Tensor, R1: torch.Tensor) -> torch.Tensor:

@@ -21,6 +21,15 @@ from .saliency import RADIUS, saliency_map, saliency_map_plain
 _INF = float("inf")
 
 
+def top_k(x: torch.Tensor, k: int):
+    """``lax.top_k``: the ``k`` largest entries along the last axis and
+    their indices, value descending and the lower index first among equal
+    values (``torch.topk`` promises neither which tied entries it keeps
+    nor their order)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def select_keypoints(image: torch.Tensor, counter: torch.Tensor,
                      respond: torch.Tensor,
                      sensor: SensorConfig = SensorConfig(),
@@ -95,14 +104,10 @@ def select_keypoints_planes(image: torch.Tensor, counter: torch.Tensor,
         good = good & (~low | (zext > kp.ground_extent_m))
 
     score = torch.where(good, saliency, -_INF).reshape(-1)
-    _, idx = torch.topk(score, kp.n_keypoints)
-    # order as lax.top_k does: value descending, lower index first among
-    # equal values.  Exact ties are common -- two pixels that are each
-    # other's nearest respond neighbour share one min_d2 -- and the order
-    # is what the RANSAC sample indices refer to.
-    idx = idx.sort().values
-    vals, order = score[idx].sort(descending=True, stable=True)
-    idx = idx[order]
+    # exact ties are common -- two pixels that are each other's nearest
+    # respond neighbour share one min_d2 -- and the order is what the
+    # RANSAC sample indices refer to
+    vals, idx = top_k(score, kp.n_keypoints)
     key_mask = torch.isfinite(vals)
     r, c = idx // W, idx % W
     key_pixels = torch.stack([r, c], -1).to(torch.int32)

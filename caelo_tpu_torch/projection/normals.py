@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import SensorConfig
+from ..ops.nms import top_k
 
 
 def _smallest_eigvec_sym3x3(axx, axy, axz, ayy, ayz, azz):
@@ -130,11 +131,7 @@ def extract_planar_points(image: torch.Tensor, counter: torch.Tensor,
               & (rows % stride == 0) & (cols % stride == 0))
 
     score = torch.where(planar, -lam0c, -math.inf).reshape(-1)
-    _, idx = torch.topk(score, max_planar)
-    # lax.top_k's order: value descending, lower index first among ties
-    idx = idx.sort().values
-    vals, order = score[idx].sort(descending=True, stable=True)
-    idx = idx[order]
+    vals, idx = top_k(score, max_planar)
     mask = torch.isfinite(vals)
     out = torch.stack([c.reshape(-1)[idx].float()
                        for c in (px, py, pz, nx, ny, nz)], 1)

@@ -17,7 +17,16 @@ Phases (each raises on failure; the script then exits nonzero):
    frame's refinement features against the all-plain path, and
    ``run_full_pipeline`` (front end, de-jump, ICP refinement) at the
    default config on the 17 scans with scan 8 thinned to 40 % (unhealthy,
-   so its pairs are refined), launch counts, pose sanity, times.
+   so its pairs are refined), launch counts, pose sanity, times;
+7. the whole pipeline: ``run_full_pipeline`` at the default config with
+   loop closure on over the 88-frame ray-cast CI circuit (one lap, so the
+   last frames revisit the first) with a degradation burst over frames
+   30-41: front end, de-jump, refinement, burst rescue, loop closure and
+   the pose-graph solve.  Checks that the burst span was solved, loop
+   candidates were verified, the graph was solved when a closure was
+   accepted, every pose is finite and on SO(3), and K1 ran on every frame;
+   logs each stage's ATE against the ground truth, loop precision/recall,
+   the burst and closure stats, stage times and peak memory.
 
 Prints a ``{"kernels": [...]}`` JSON line, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Without a CUDA device
@@ -33,6 +42,10 @@ import numpy as np
 
 N_SCANS = 17
 WINDOW = 16
+# phase 7: the CI circuit of tests/test_hard_full_stack.py with the burst of
+# tests/test_degraded_rescue.py, ray-cast at the sensor's own azimuth step
+CIRCUIT = dict(n_frames=88, seed=0, side=30.0, yaw_rate_deg=6.0, n_cars=3,
+               degraded_spans=[(30, 42, 0.8, 140.0)], az_step_deg=0.2)
 REPS = 50            # kernel timing launches per arm
 WINDOW_REPS = 3      # warm window timings
 
@@ -187,6 +200,129 @@ def compare_refinement_features(fk, fp, rk, rp, what):
     log(f"{what}: keypoint lists equal {same_kp}, extended points "
         f"{int(rk.ext_mask.sum())}, planar rows {int(rk.planar_mask.sum())},"
         f" planar max_abs_err {err:.3e}")
+
+
+def count_calls(module, name, record):
+    """Wrap ``module.name`` so every call appends ``(ms, result)`` to
+    ``record``, synchronised; returns a function that restores it."""
+    import torch
+
+    fn = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        record.append(((time.perf_counter() - t0) * 1e3, out))
+        return out
+
+    setattr(module, name, wrapped)
+    return lambda: setattr(module, name, fn)
+
+
+def whole_pipeline(cfg, respond_net, encoder, card):
+    """Phase 7: run_full_pipeline with every stage on the CI circuit with a
+    burst.  Every line with a time ends with ``card`` (the nvidia-smi
+    name and power limit).  Returns the kernel launch counts of the run."""
+    import torch
+    import caelo_tpu_torch.backend.burst as burst_mod
+    import caelo_tpu_torch.pipeline as pipe_mod
+    from caelo_tpu_torch.data.hard_synthetic import generate_benchmark
+    from caelo_tpu_torch.eval.metrics import (absolute_trajectory_error,
+                                              loop_closure_pr,
+                                              registration_summary,
+                                              relative_pose_errors)
+    from caelo_tpu_torch.ops.plane_gather import gather_planes
+    from caelo_tpu_torch.ops.saliency import saliency_map
+    from caelo_tpu_torch.utils.telemetry import StageTimer
+
+    t0 = time.perf_counter()
+    scans, gt = generate_benchmark(cfg=cfg, **CIRCUIT)
+    n = len(scans)
+    n_pts = [int(m.sum()) for _, m in scans]
+    log(f"7 ray-cast {n} scans in {time.perf_counter() - t0:.1f} s on the "
+        f"host: {min(n_pts)}-{max(n_pts)} points per scan, burst frames "
+        f"{n_pts[30:42]}; {card}")
+
+    loops, solves, maps, nn_calls = [], [], [], []
+    restore = [count_calls(pipe_mod, "detect_and_close", loops),
+               count_calls(pipe_mod, "optimize_host", solves),
+               count_calls(burst_mod, "burst_map_icp", maps)]
+    nn = burst_mod.nearest_neighbors
+    burst_mod.nearest_neighbors = lambda *a: nn_calls.append(1) or nn(*a)
+    timer = StageTimer(sync=True)     # synchronises the card at both ends
+    torch.cuda.reset_peak_memory_stats()
+    saliency_map.launches = 0
+    gather_planes.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        res = pipe_mod.run_full_pipeline(
+            scans, respond_net, encoder, cfg=cfg, enable_loop_closure=True,
+            min_loop_gap=60, timer=timer)
+        torch.cuda.synchronize()
+    finally:
+        burst_mod.nearest_neighbors = nn
+        for r in restore:
+            r()
+    t_all = time.perf_counter() - t0
+    launches = {"saliency_map": saliency_map.launches,
+                "gather_planes": gather_planes.launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+
+    summary = {k: round(v["total_s"] * 1e3, 1)
+               for k, v in timer.summary().items()}
+    log(f"7 run_full_pipeline: {t_all * 1e3:.1f} ms for {n} scans; stage ms "
+        f"{summary}; peak device memory {peak:.1f} MiB; launches {launches}"
+        f"; {card}")
+    odo = res.odometry
+    s = registration_summary(relative_pose_errors(gt, res.poses_raw,
+                                                  np.eye(3), np.zeros(3)))
+    log(f"7 front end: pair successes {int(odo.successes.sum())}/{n - 1}, "
+        f"mean inliers {float(odo.n_inliers.mean()):.1f}; against the ground "
+        f"truth: RRE {s['rre_deg']:.4f} deg, RTE {s['rte_m']:.4f} m, success "
+        f"{s['success_rate']:.4f}")
+    for name in ("poses_raw", "poses_dejumped", "poses_refined",
+                 "poses_final"):
+        P = getattr(res, name)
+        orth, det = check_rel_rotations(P, name)
+        check_so3(P.reshape(-1, 3, 4)[:, :, :3], f"{name} absolute")
+        ate = absolute_trajectory_error(gt, P)
+        log(f"7 {name}: ATE rmse {ate['ate_rmse']:.4f} m, max "
+            f"{ate['ate_max']:.4f} m; rel |R^T R - I| {orth:.2e}")
+    st = res.refine_stats
+    log(f"7 de-jumped {res.dejumped_frames}; refined {len(st.refined)}, "
+        f"failed {len(st.failed)}, rejected {len(st.rejected)}")
+
+    bs = res.burst_stats
+    trips = len(nn_calls)
+    log(f"7 burst rescue: spans {bs.spans}, accepted {bs.accepted}, "
+        f"rejected {bs.rejected}, gains {bs.gains}, closures {bs.closures}; "
+        f"burst_map_icp {[round(ms, 1) for ms, _ in maps]} ms, "
+        f"{trips} map nearest-neighbour passes; {card}")
+    if not (bs.spans and bs.gains and maps):
+        raise AssertionError("no burst span was solved")
+    if sorted(bs.accepted + bs.rejected) != sorted(bs.spans):
+        raise AssertionError("a burst span was neither accepted nor rejected")
+
+    (ms_lc, lc), = loops
+    pr = loop_closure_pr(res.loop_edge_i, res.loop_edge_j,
+                         gt.reshape(-1, 3, 4)[:, :, 3], min_gap=40)
+    log(f"7 loop closure: {lc.candidates_checked} candidates checked, "
+        f"{lc.n_accepted} accepted, {res.n_loop_closures} with propagation, "
+        f"rejects {lc.rejects}; edges "
+        f"{list(zip(res.loop_edge_i.tolist(), res.loop_edge_j.tolist()))}; "
+        f"precision {pr['precision']}, recall {pr['recall']} "
+        f"({pr['n_revisit_events']} revisit events); graph solves "
+        f"{[round(ms, 1) for ms, _ in solves]} ms; {card}")
+    if lc.candidates_checked < 1:
+        raise AssertionError("loop closure checked no candidate")
+    if res.n_loop_closures > 0 and not solves:
+        raise AssertionError("a closure was accepted but no graph solved")
+    if launches["saliency_map"] < n:
+        raise AssertionError("run_full_pipeline did not run K1 per frame")
+    return launches
 
 
 def timed_ms(fn, reps):
@@ -510,8 +646,11 @@ def main():
     log(f"refinement moved the poses by up to {moved:.4f}; peak device "
         f"memory of phase 6: "
         f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB")
+    # ---- 7. the whole pipeline
+    launches_7 = whole_pipeline(cfg, respond_net, encoder, smi)
     for name in launches:
-        launches[name] += launches_r[name] + launches_f[name]
+        launches[name] += (launches_r[name] + launches_f[name]
+                           + launches_7[name])
 
     kernels = [
         {"name": "saliency_map", "route": "cuda",

@@ -1,7 +1,7 @@
 """The port on a CUDA device: both CUDA kernels against their plain versions
-at the main path's shapes, one frame's features and registration, and the
-batched hybrid ICP, on the card against the CPU path.  Every test skips
-without a CUDA device.
+at the main path's shapes, one frame's features and registration, the
+batched hybrid ICP and the burst map ICP, on the card against the CPU
+path.  Every test skips without a CUDA device.
 
 Imports torch and the port only, so the file also runs where JAX is absent
 (the repo's conftest imports JAX, hence ``--noconftest``):
@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from caelo_tpu_torch import setup_device
+from caelo_tpu_torch.backend.burst import burst_map_icp
 from caelo_tpu_torch.backend.icp import icp_hybrid
 from caelo_tpu_torch.config import IcpConfig, tiny_test_config
 from caelo_tpu_torch.data.synthetic import (make_scene, range_filter,
@@ -154,3 +155,52 @@ def test_icp_hybrid_on_card_matches_cpu(cuda, rng):
     for a, b in ((res_gpu.init_res, res_cpu.init_res),
                  (res_gpu.final_res, res_cpu.final_res)):
         torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=0)
+
+
+def _turn_span(rng, E=2048, n_frames=8):
+    """A structured world (ground, two walls, posts) seen from 8 poses
+    through a 6 deg/frame turn, the interior frames through a 90 deg
+    wedge; straight-line initial rels."""
+    world = np.concatenate([
+        rng.uniform([-30, -30, -1.8], [30, 30, -1.75], (2000, 3)),
+        rng.uniform([12, -25, -1.8], [12.3, 25, 2.5], (1000, 3)),
+        rng.uniform([-25, 14, -1.8], [25, 14.3, 2.5], (500, 3)),
+        rng.uniform([-20, -20, -1.8], [20, 20, 3.0], (500, 3))])
+    pts = np.zeros((n_frames, E, 3), np.float32)
+    msk = np.zeros((n_frames, E), bool)
+    R, t = np.eye(3), np.zeros(3)
+    for k in range(n_frames):
+        local = (world - t) @ R
+        if 0 < k < n_frames - 1:
+            az = np.degrees(np.arctan2(local[:, 1], local[:, 0]))
+            local = local[np.abs(az) < 45.0]
+        local = local + rng.normal(0, 0.01, local.shape)
+        m = min(len(local), E)
+        pts[k, :m], msk[k, :m] = local[:m], True
+        t = t + R @ np.array([0.8, 0.0, 0.0])
+        R = R @ _rot_z(6.0)
+    init_R = np.tile(np.eye(3, dtype=np.float32), (n_frames - 1, 1, 1))
+    init_t = np.tile(np.float32([0.8, 0.0, 0.0]), (n_frames - 1, 1))
+    return pts, msk, init_R, init_t
+
+
+def test_burst_map_icp_on_card_matches_cpu(cuda, rng):
+    """burst_map_icp over a 7-pair wedge span through a turn, TF32 off: the
+    same per-frame and closure success; rel rotations and the closure
+    within 1e-3, rel translations within 5e-3 m, residuals within 5e-4 m,
+    the bounds the CPU parity test holds the port to JAX with (the span's
+    own float32 conditioning, tests/test_torch_burst.py::
+    test_jax_burst_map_icp_conditioning)."""
+    args = [torch.from_numpy(a) for a in _turn_span(rng)]
+    cfg = IcpConfig(max_points=2048, max_iters=20, min_inliers=60)
+    kw = dict(icp_cfg=cfg, frame_budget=512, thr_scale=2.0)
+    cpu = burst_map_icp(*args, 7, **kw)
+    gpu = burst_map_icp(*(a.to(cuda) for a in args), 7, **kw)
+    assert cpu[2].all() and cpu[7]
+    np.testing.assert_array_equal(gpu[2], cpu[2])
+    assert gpu[7] == cpu[7]
+    for k, tol in ((0, 1e-3), (1, 5e-3), (5, 1e-3), (6, 1e-3)):
+        torch.testing.assert_close(gpu[k].cpu(), cpu[k], atol=tol, rtol=0)
+    for k in (3, 4):
+        np.testing.assert_allclose(gpu[k], cpu[k], atol=5e-4, rtol=0)
+    assert abs(gpu[8] - cpu[8]) < 5e-4

@@ -117,6 +117,47 @@ def test_random_flax_params_match_flax_layout():
     assert shape(rp) == shape(fr) and shape(ep) == shape(fe)
 
 
+def test_match_descriptors_exact_duplicates(rng):
+    """Exact duplicate descriptors are at distance exactly 0, whatever the
+    matmul's rounding: frame 1 repeats ten frame-0 descriptors, five of
+    them twice in frame 0 (an argmin tie at 0, won by the lower index),
+    and all ten pass the Lowe gate.  Batched over two pairs.  Given a d2
+    that is 1 everywhere, exactly the pairs of equal rows within their own
+    pair are set to 0: not a row one ulp off, a row of the other pair or a
+    permuted row; also when every fingerprint collides and the
+    lexicographic unique decides."""
+    from caelo_tpu_torch.frontend import matching
+
+    K0, K1, D = 60, 50, 60
+    c0 = rng.normal(size=(2, K0, D)).astype(np.float32)
+    c1 = rng.normal(size=(2, K1, D)).astype(np.float32)
+    c0[:, 10:15] = c0[:, 5:10]
+    c1[:, :10] = c0[:, :10]
+    c1[:, 10] = np.nextafter(c0[:, 20], np.float32(np.inf))
+    c1[1, 11] = c0[0, 21]                   # a row of the other pair
+    c1[:, 12] = c0[:, 22, ::-1]             # a permuted row
+    m0 = np.ones((2, K0), bool)
+    m1 = np.ones((2, K1), bool)
+    it, mt, dt = tmatch(torch.from_numpy(c0), torch.from_numpy(m0),
+                        torch.from_numpy(c1), torch.from_numpy(m1),
+                        ratio=0.9)
+    assert mt[:, :10].all() and not dt[:, :10].any()
+    np.testing.assert_array_equal(it[:, :10].numpy(),
+                                  np.tile(np.arange(10), (2, 1)))
+
+    same = (c0[:, :, None] == c1[:, None]).all(-1)
+    assert same.sum() == 2 * 15
+    for golden in (matching._GOLDEN, 0):    # 0: all fingerprints collide
+        matching._GOLDEN, keep = golden, matching._GOLDEN
+        try:
+            got = matching._zero_exact_duplicates(
+                torch.ones((2, K0, K1)), torch.from_numpy(c0),
+                torch.from_numpy(c1))
+        finally:
+            matching._GOLDEN = keep
+        np.testing.assert_array_equal(got.numpy() == 0, same)
+
+
 @pytest.mark.parametrize("mode", ["plain", "prior", "ratio"])
 def test_match_descriptors_matches_jax(rng, mode):
     K0, K1, D = 60, 50, 60

@@ -1,8 +1,8 @@
 """The port's refinement back end against the JAX package on the CPU, at
 ``tiny_test_config()`` sizes: extended keypoints, planar points, nearest
 neighbours, batched hybrid ICP, the refinement features and ICP callables,
-``stage_refinement`` and ``run_full_pipeline`` through refinement, plus the
-stages the port refuses.  Each test states its tolerance."""
+``stage_refinement`` and ``run_full_pipeline`` through refinement.  Each
+test states its tolerance."""
 import dataclasses
 
 import numpy as np
@@ -388,17 +388,3 @@ def test_run_full_pipeline_matches_jax(params, nets):
     assert dataclasses.asdict(st) == dataclasses.asdict(sj)
     assert st.refined + st.failed + st.rejected        # ICP really ran
     assert tres.burst_stats.spans == jres.burst_stats.spans == []
-
-
-def test_run_full_pipeline_refuses_missing_stages(nets):
-    """A burst of 4 unhealthy scans needs burst rescue and more than
-    min_loop_gap scans need loop closure: both raise before any work."""
-    net, enc = nets
-    full = np.ones(100, bool)
-    scans = [(np.zeros((100, 4), np.float32), full)] * 9
-    burst = scans[:3] + [(scans[0][0], np.arange(100) < 10)] * 4 + scans[:2]
-    with pytest.raises(NotImplementedError, match="burst rescue"):
-        tpipe.run_full_pipeline(burst, net, enc, cfg=CFG,
-                                enable_loop_closure=False)
-    with pytest.raises(NotImplementedError, match="loop closure"):
-        tpipe.run_full_pipeline(scans, net, enc, cfg=CFG, min_loop_gap=8)

@@ -198,15 +198,40 @@ res = refine_pairs_batched(stack_features([rf, rf], [0, 1]),
                            torch.eye(3)[None].repeat(2, 1, 1),
                            torch.zeros(2, 3), cfg)
 assert bool(res.success.all()), res
-bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax")]
+from caelo_tpu_torch.backend.burst import burst_map_icp, rescue_bursts
+from caelo_tpu_torch.backend.loopclosure import detect_and_close
+from caelo_tpu_torch.backend.posegraph import (concat_graphs, odometry_graph,
+                                               optimize, optimize_host)
+from caelo_tpu_torch.backend.scancontext import scan_context
+from caelo_tpu_torch.data.hard_synthetic import generate_benchmark
+from caelo_tpu_torch.eval.metrics import absolute_trajectory_error
+from caelo_tpu_torch.pipeline import load_stage_inputs, stage_loop_closure
+
+sc = scan_context(rf.ext_pts, rf.ext_mask)
+assert sc.shape == (16, 64) and float(sc.max()) > 0
+g = odometry_graph(np.tile(np.eye(3), (3, 1, 1)), np.tile([1.0, 0, 0], (3, 1)))
+R0 = torch.eye(3, dtype=torch.float64).repeat(4, 1, 1)
+t0 = torch.zeros(4, 3, dtype=torch.float64)
+R, t, _ = optimize_host(R0, t0, g)
+Rd, td, _ = optimize(R0, t0, g, n_iters=2)
+assert np.allclose(t[:, 0], [0, 1, 2, 3]) and np.allclose(td[:, 0], t[:, 0])
+from caelo_tpu_torch.utils.telemetry import StageTimer
+
+timer = StageTimer(sync=True)
+with timer.stage("solve"):
+    optimize_host(R0, t0, g)
+assert timer.summary()["solve"]["count"] == 1
+bad =[m for m in sys.modules if m.split(".")[0] in ("jax", "flax")]
 assert not bad, bad
 print("ok")
 """
 
 
 def test_port_imports_no_jax():
-    """A fresh interpreter imports the port, pipeline included, and runs
-    one tiny frame and a tiny batched ICP on the CPU without JAX or Flax
+    """A fresh interpreter imports the port, pipeline, burst rescue, loop
+    closure, pose graph, metrics, benchmark generator and stage timer
+    included, and runs one tiny frame, a tiny batched ICP, a scan context,
+    both pose-graph solves and a timed stage on the CPU without JAX or Flax
     ever entering sys.modules."""
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", _HYGIENE], cwd=REPO, env=env,
