@@ -1,16 +1,19 @@
-"""PyTorch + CUDA port of caelo_tpu's front-end odometry window.
+"""PyTorch + CUDA port of caelo_tpu's odometry pipeline.
 
 The JAX package ``caelo_tpu`` is the reference and stays as it is; this
 package mirrors its module paths and function names (``caelo_tpu.X.Y`` ->
-``caelo_tpu_torch.X.Y``) for the main path: spherical-ring projection,
-respond net, saliency NMS, voxel pyramid, bit-table patch query, patch
-encoder, matching, RANSAC, the motion-prior retry and the windowed odometry
-loop.  The two TPU kernels of that path are hand-written CUDA for Hopper
-(``csrc/``), each with a plain-PyTorch twin that CPU tensors use.
+``caelo_tpu_torch.X.Y``) for ``run_full_pipeline``: spherical-ring
+projection, respond net, saliency NMS, voxel pyramid, bit-table patch query,
+patch encoder, matching, RANSAC, the windowed odometry loop, de-jump, ICP
+refinement, burst rescue, loop closure and the pose graph.  The two TPU
+kernels of that path are hand-written CUDA for Hopper (``csrc/``), each with
+a plain-PyTorch twin that CPU tensors use.
 
-It imports ``torch`` and never ``jax``; host-only modules of ``caelo_tpu``
-whose import chain is free of JAX (``config``, ``data.synthetic``,
-``models.weights_io``) are imported, not copied.
+It imports ``torch`` and nothing of ``jax`` or ``caelo_tpu``: the host-only
+modules it shares with the JAX package (``config``, ``data.synthetic``,
+``data.hard_synthetic``, ``data.artifacts``, ``backend.refine``,
+``utils.telemetry``, the ``.h5`` readers of ``models.weights_io``) are the
+port's own copies, held to the JAX ones by ``tests/test_torch_imports.py``.
 """
 from __future__ import annotations
 

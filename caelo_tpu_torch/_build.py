@@ -23,6 +23,8 @@ import threading
 import time
 from typing import NamedTuple
 
+import torch
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_ROOT = os.path.join(_HERE, "_build")
@@ -32,10 +34,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 # C signatures of the entry points (see the csrc/*.cu headers)
 _SIGNATURES = {
-    "caelo_saliency_map": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "caelo_gather_planes": [_P, _P, _P, _I, _I, _I, _P],
+    "caelo_keypoint_score": [_P, _P, _I, _L, _I, _P, _P, _L, _I, _I,
+                             _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _F, _F, _I, _F, _F, _P],
+    "caelo_patches_from_planes": [_P, _P, _P, _P, _I, _I, _P],
 }
 
 
@@ -105,6 +111,30 @@ def load_library() -> KernelLibrary:
         if _loaded is None:
             _loaded = _build()
         return _loaded
+
+
+_functions: dict = {}
+
+
+def kernel(name: str):
+    """The C entry point ``name`` of the kernel library, looked up once per
+    process: a wrapper's launch costs one ctypes call and no lock."""
+    fn = _functions.get(name)
+    if fn is None:
+        fn = _functions[name] = getattr(load_library().lib, name)
+    return fn
+
+
+def stream(device: torch.device) -> int:
+    """The raw handle of the current CUDA stream on ``device``: PyTorch's
+    own C accessor where the build has it (no Python stream object per
+    launch), else the public ``current_stream``."""
+    index = device.index if device.index is not None else (
+        torch.cuda.current_device())
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
 
 
 def check(code: int, what: str) -> None:

@@ -1,12 +1,17 @@
 """Flax-layout parameters -> PyTorch modules.
 
 The JAX package's weights (random init, its training path, or the shipped
-Keras ``.h5`` files through ``caelo_tpu.models.weights_io``) are nested
-dicts of arrays in Flax layout: conv kernels ``(spatial..., in, out)``,
-Dense kernels ``(in, out)``.  PyTorch wants ``(out, in, spatial...)`` and
-``(out, in)``; the converters transpose and nothing else.
+Keras ``.h5`` files) are nested dicts of arrays in Flax layout: conv
+kernels ``(spatial..., in, out)``, Dense kernels ``(in, out)``.  PyTorch
+wants ``(out, in, spatial...)`` and ``(out, in)``; the converters transpose
+and nothing else.  The ``.h5`` readers are the port's own copy of
+``caelo_tpu/models/weights_io.py``'s (numpy, with h5py imported when a file
+is read): Keras stores the same layout as Flax, so reading is a renaming.
 """
 from __future__ import annotations
+
+import os
+from typing import Dict
 
 import numpy as np
 import torch
@@ -75,16 +80,87 @@ def build_models(respond_params, encoder_params, device, cfg=None):
     return respond.to(device).eval(), encoder.to(device).eval()
 
 
-def load_reference_models(device, cfg=None):
-    """The shipped reference weights (``TrainedModels/*.h5``), read by the
-    JAX package's loaders (numpy + h5py, no JAX), as torch modules."""
-    from caelo_tpu.models import weights_io as flax_weights_io
+# the reference's TrainedModels directory; not part of the repository
+REFERENCE_MODELS_DIR = os.environ.get("CAELO_REFERENCE_MODELS",
+                                      "TrainedModels")
 
-    if not flax_weights_io.reference_models_available():
+
+def _h5_layer_weights(path: str) -> Dict[str, list]:
+    """Read {layer_name: [kernel, bias]} from a Keras .h5 in layer order."""
+    import h5py
+
+    out = {}
+    with h5py.File(path, "r") as f:
+        g = f["model_weights"]
+        layer_names = [
+            n.decode() if isinstance(n, bytes) else n
+            for n in g.attrs["layer_names"]
+        ]
+        for name in layer_names:
+            lg = g[name]
+            wnames = [
+                n.decode() if isinstance(n, bytes) else n
+                for n in lg.attrs.get("weight_names", [])
+            ]
+            if wnames:
+                out[name] = [np.array(lg[w]) for w in wnames]
+    return out
+
+
+def load_respond_layer_params(path: str | None = None):
+    """Shipped respond-layer weights -> Flax ``RespondLayer`` params."""
+    path = path or os.path.join(
+        REFERENCE_MODELS_DIR, "SphericalRingPCRespondLayer.h5"
+    )
+    w = _h5_layer_weights(path)
+    convs = [n for n in w if n.startswith("conv")]
+    assert len(convs) == 2, convs
+    k1, b1 = w[convs[0]]
+    k2, b2 = w[convs[1]]
+    return {
+        "params": {
+            "conv1_1": {"kernel": k1, "bias": b1},
+            "conv1_1_2": {"kernel": k2, "bias": b2},
+        }
+    }
+
+
+def load_patch_encoder_params(path: str | None = None):
+    """Shipped voxel-patch encoder weights -> Flax ``PatchEncoder`` params."""
+    path = path or os.path.join(
+        REFERENCE_MODELS_DIR, "EncoderModel4VoxelPatch.h5"
+    )
+    w = _h5_layer_weights(path)
+    convs = sorted([n for n in w if n.startswith("conv3d")])
+    denses = sorted([n for n in w if n.startswith("dense")])
+    assert len(convs) == 3 and len(denses) == 2, (convs, denses)
+    params = {}
+    for flax_name, h5_name in zip(["conv1", "conv2", "conv3"], convs):
+        k, b = w[h5_name]
+        params[flax_name] = {"kernel": k, "bias": b}
+    for flax_name, h5_name in zip(["fn1", "fn2"], denses):
+        k, b = w[h5_name]
+        params[flax_name] = {"kernel": k, "bias": b}
+    return {"params": params}
+
+
+def reference_models_available() -> bool:
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        return False
+    return os.path.isdir(REFERENCE_MODELS_DIR)
+
+
+def load_reference_models(device, cfg=None):
+    """The shipped reference weights (``TrainedModels/*.h5``, from
+    ``REFERENCE_MODELS_DIR`` or the ``CAELO_REFERENCE_MODELS`` environment
+    variable) as torch modules."""
+    if not reference_models_available():
         raise FileNotFoundError(
-            f"reference models not found in {flax_weights_io.REFERENCE_MODELS_DIR}")
-    return build_models(flax_weights_io.load_respond_layer_params(),
-                        flax_weights_io.load_patch_encoder_params(), device, cfg)
+            f"reference models not found in {REFERENCE_MODELS_DIR}")
+    return build_models(load_respond_layer_params(),
+                        load_patch_encoder_params(), device, cfg)
 
 
 def random_flax_params(seed: int = 0, code_dim: int = 20):

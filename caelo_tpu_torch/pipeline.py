@@ -5,8 +5,8 @@ rescue -> loop closure -> pose-graph solve (port of
 Every stage is a function over explicit inputs; ``run_full_pipeline``
 chains them in memory on the device of the respond net, while
 ``preprocess_to_store`` / ``load_stage_inputs`` persist and reload the
-back end's inputs through ``caelo_tpu.data.artifacts.ArtifactStore`` (numpy
-only, shared with the JAX package) so the back-end stages can re-run from
+back end's inputs through ``data.artifacts.ArtifactStore`` (numpy only, the
+JAX package's on-disk layout) so the back-end stages can re-run from
 disk.  The pose bookkeeping between stages, the burst-rescue host logic and
 the pose-graph solve are host float64 numpy.
 """
@@ -19,8 +19,6 @@ from typing import Callable, Iterable, List, Optional
 import numpy as np
 import torch
 
-from caelo_tpu.data.artifacts import ArtifactStore
-
 from . import setup_device
 from .backend import refine
 from .backend.burst import find_burst_spans, rescue_bursts
@@ -32,6 +30,7 @@ from .backend.refine_runner import (RefinementFeatures,
                                     make_batched_icp_fn, make_icp_fn)
 from .backend.scancontext import yaw_rotation
 from .config import PipelineConfig
+from .data.artifacts import ArtifactStore
 from .frontend.odometry import OdometryResult, run_odometry_windowed
 from .frontend.registration import (FrameFeatures, register_pair,
                                     register_pair_with_prior)
@@ -419,11 +418,13 @@ def save_stage_outputs(store: ArtifactStore, seq: str, odo: OdometryResult,
                t_tr=np.asarray(t_tr), n_frames=np.asarray(n))
 
 
-def load_stage_inputs(store: ArtifactStore, seq: str, device="cpu"):
+def load_stage_inputs(store: ArtifactStore, seq: str, device="cuda"):
     """Reload what ``save_stage_outputs`` wrote (by either package).
     Returns a dict with ``feats`` / ``ref_feats`` stacked with a leading
     frame axis on ``device``, plus ``inlier_pairs``, ``rel_Rs``,
-    ``rel_ts``, ``successes``, ``R_tr``, ``t_tr``, ``n_frames``."""
+    ``rel_ts``, ``successes``, ``R_tr``, ``t_tr``, ``n_frames``.  The
+    features land on the card, as every entry point of the port runs there;
+    the CPU only when the caller passes ``device="cpu"``."""
     calib = store.load("meta", seq, "calib")
     n = int(calib["n_frames"])
     fcols = {k: [] for k in FrameFeatures._fields}

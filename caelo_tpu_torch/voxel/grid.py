@@ -5,9 +5,10 @@
   id, 4-bit local coords) key, dedup and compaction -> padded occupied-voxel
   lists in supercell order.
 * :func:`extract_patches`: per scale, a bit table of 16 z-bits per
-  (supercell, x, y) column, the 2x2x2 covering supercells' word planes
-  gathered per keypoint (kernel K2 behind ``use_pallas_plane_gather``),
-  then shift/slice alignment and the bit unpack into a 16^3 patch.
+  (supercell, x, y) column, the 2x2x2 covering supercells' table slots per
+  keypoint, then the word planes gathered, aligned and unpacked into a 16^3
+  patch (kernel K2, ``ops/plane_gather.py``, behind
+  ``use_pallas_plane_gather``, the port's default).
 
 Only the bit-table route is ported: the default ``bitgrid_slots`` sends all
 three scales there, so the knn and window patch paths are never reached.
@@ -20,7 +21,8 @@ import torch
 
 from ..config import VoxelConfig
 from ..ops.masking import compact
-from ..ops.plane_gather import gather_planes, gather_planes_plain
+from ..ops.plane_gather import (patches_from_planes,
+                                patches_from_planes_plain)
 
 _INT32_MAX = 2 ** 31 - 1
 _INT64_MAX = 2 ** 63 - 1
@@ -198,17 +200,20 @@ def _slot_lookup(lin_sorted, is_first, slot_of_sorted, n_ids: int, slots: int):
     return lookup
 
 
-def _patches_one_scale_bitgrid(kv, key_mask, vox, vox_mask, cfg: VoxelConfig,
-                               scale: int, slots: int):
-    """16^3 occupancy patches of one scale via the bit table.
+def bitgrid_query(kv, key_mask, vox, vox_mask, cfg: VoxelConfig,
+                  scale: int, slots: int):
+    """The bit table of one scale and each keypoint's query into it:
+    ``(table2, slot, o)``, the ``(slots + 1, P, P)`` int32 word table (its
+    last row the zero plane), the ``(K, 2, 2, 2)`` int32 table rows of the
+    keypoint's covering supercells, and the ``(K, 3)`` int32 offset of its
+    patch window in the first of them.
 
     ``kv (K, 3)`` int32 keypoint voxels; ``vox (M, 3)`` the presorted
-    occupied-voxel list.  Returns ``(K, P, P, P)`` float32.
+    occupied-voxel list.
     """
     if not cfg.presorted_pyramid:
         raise ValueError("the bit-table build takes voxelize()'s presorted "
                          "pyramid (presorted_pyramid=True)")
-    K = kv.shape[0]
     P = cfg.patch_size
     R = cfg.patch_radius
     pbits = P.bit_length() - 1
@@ -248,26 +253,19 @@ def _patches_one_scale_bitgrid(kv, key_mask, vox, vox_mask, cfg: VoxelConfig,
     okb = ((nb >= 0) & (nb < sgv)).all(-1) & key_mask[:, None, None, None]
     nlin = nb[..., 0] * (sgy * sgz) + nb[..., 1] * sgz + nb[..., 2]
     slot = lookup(nlin, okb).to(torch.int32).contiguous()
-    if cfg.use_pallas_plane_gather:
-        planes = gather_planes(table2, slot)          # K2 (CPU: plain)
-    else:
-        planes = gather_planes_plain(table2, slot)    # (K, 2,2,2, P, P)
+    return table2, slot, o.contiguous()
 
-    # z: combine the two z-adjacent planes into 16-bit windows per column
-    shift = (ox[:, 2] & pmask)[:, None, None, None, None]
-    wA, wB = planes[:, :, :, 0], planes[:, :, :, 1]   # (K, 2, 2, P, P)
-    win = ((wA >> shift) | torch.where(shift > 0, wB << (P - shift), 0)
-           ) & ((1 << P) - 1)
-    ar = torch.arange(P, device=dev)
-    # x: concatenate the two x-supercells and take the window's 16 rows
-    winx = torch.cat([win[:, 0], win[:, 1]], 2)       # (K, 2, 2P, P)
-    ix = (o[:, 0, None] + ar).long()                  # (K, P)
-    winx = winx.gather(2, ix[:, None, :, None].expand(K, 2, P, P))
-    # y: the same along the ly axis
-    winy = torch.cat([winx[:, 0], winx[:, 1]], 2)     # (K, P, 2P)
-    iy = (o[:, 1, None] + ar).long()
-    winy = winy.gather(2, iy[:, None, :].expand(K, P, P))
-    return ((winy[..., None] >> ar.to(torch.int32)) & 1).to(torch.float32)
+
+def _patches_one_scale_bitgrid(kv, key_mask, vox, vox_mask, cfg: VoxelConfig,
+                               scale: int, slots: int):
+    """16^3 occupancy patches of one scale via the bit table: ``(K, P, P,
+    P)`` float32."""
+    query = bitgrid_query(kv, key_mask, vox, vox_mask, cfg, scale, slots)
+    if cfg.use_pallas_plane_gather:
+        # K2 (CPU: plain): gather, z-combine, x/y alignment and bit unpack
+        # in one launch
+        return patches_from_planes(*query)
+    return patches_from_planes_plain(*query)
 
 
 def extract_patches(key_pts: torch.Tensor, key_mask: torch.Tensor,

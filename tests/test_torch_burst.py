@@ -227,8 +227,8 @@ def test_rescue_bursts_matches_jax():
     its own make_batched_icp_fn as pair_icp_fn (the closure polish and the
     per-pair polish run), max_span 8 (JAX pads the 7 pairs to 8, not to
     its 16 bucket): same spans, accepted, rejected and closure sources;
-    gains within 1e-4 m, poses within 1e-3.  The splice repairs the
-    trajectory."""
+    gains within RES_TOL (5e-4 m), poses within 1e-3.  The splice repairs
+    the trajectory."""
     poses, feats, healthy, gt_pos = _splice_inputs()
     cfg = PipelineConfig(icp=ICP_CFG)
     ft = trr.RefinementFeatures(*(torch.from_numpy(x) for x in feats))
@@ -246,7 +246,11 @@ def test_rescue_bursts_matches_jax():
     assert ([c[2].split("(")[0] for c in st.closures]
             == [c[2].split("(")[0] for c in sj.closures])
     assert "polish" in st.closures[0][2]
-    np.testing.assert_allclose(st.gains, sj.gains, atol=1e-4, rtol=0)
+    # a gain is a difference of two map-ICP residuals: under a one-ulp change
+    # of the inputs those move by 5.1e-4 m on a wedge span
+    # (test_jax_burst_map_icp_conditioning), so the gains carry the bound
+    # that the residuals already use
+    np.testing.assert_allclose(st.gains, sj.gains, atol=RES_TOL, rtol=0)
     np.testing.assert_allclose(pt, pj, atol=1e-3, rtol=0)
     err = lambda p: np.linalg.norm(p.reshape(-1, 3, 4)[:, :, 3] - gt_pos, 1)
     assert err(pt).max() < 0.35 * err(poses).max()

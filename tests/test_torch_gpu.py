@@ -1,7 +1,9 @@
 """The port on a CUDA device: both CUDA kernels against their plain versions
-at the main path's shapes, one frame's features and registration, the
-batched hybrid ICP and the burst map ICP, on the card against the CPU
-path.  Every test skips without a CUDA device.
+at the main path's shapes and at the edges (borders, odd widths, pixels
+with no occupied neighbour, all-masked keypoints, clamped slots), one
+frame's features and registration, the batched hybrid ICP and the burst map
+ICP, on the card against the CPU path.  Every test skips without a CUDA
+device.
 
 Imports torch and the port only, so the file also runs where JAX is absent
 (the repo's conftest imports JAX, hence ``--noconftest``):
@@ -17,7 +19,8 @@ import torch
 from caelo_tpu_torch import setup_device
 from caelo_tpu_torch.backend.burst import burst_map_icp
 from caelo_tpu_torch.backend.icp import icp_hybrid
-from caelo_tpu_torch.config import IcpConfig, tiny_test_config
+from caelo_tpu_torch.config import (IcpConfig, KeypointConfig, SensorConfig,
+                                    tiny_test_config)
 from caelo_tpu_torch.data.synthetic import (make_scene, range_filter,
                                             sample_scene_points)
 from caelo_tpu_torch.frontend.ransac import draw_samples
@@ -26,8 +29,11 @@ from caelo_tpu_torch.frontend.registration import (extract_frame_features,
                                                    stack_features)
 from caelo_tpu_torch.models.weights_io import build_models, random_flax_params
 from caelo_tpu_torch.ops.masking import pad_points
-from caelo_tpu_torch.ops.plane_gather import gather_planes, gather_planes_plain
-from caelo_tpu_torch.ops.saliency import saliency_map, saliency_map_plain
+from caelo_tpu_torch.ops.plane_gather import (patches_from_planes,
+                                              patches_from_planes_plain)
+from caelo_tpu_torch.ops.saliency import (keypoint_score,
+                                          keypoint_score_plain, saliency_map,
+                                          saliency_map_plain)
 
 pytestmark = pytest.mark.gpu
 
@@ -62,19 +68,136 @@ def test_saliency_kernel_matches_plain(cuda, rng, batch):
     torch.testing.assert_close(md[fin], md_ref[fin], atol=1e-4, rtol=1e-5)
 
 
+def _random_query(rng, slots, K=1024, P=16):
+    """A full-range int32 word table whose last row is the zero plane, and
+    slots and offsets for K keypoints: zero-plane rows, clamped slots below
+    0 and above ``slots``, and offsets 0 and 15 on each axis."""
+    table2 = rng.integers(-2**31, 2**31 - 1, (slots + 1, P, P)).astype(np.int32)
+    table2[slots] = 0
+    slot = rng.integers(0, slots + 1, (K, 2, 2, 2)).astype(np.int32)
+    slot[::7] = slots
+    slot[1, 0, 0, 0], slot[2, 1, 1, 1] = -3, slots + 9
+    o = rng.integers(0, P, (K, 3)).astype(np.int32)
+    o[3], o[4], o[5], o[6] = (0, 0, 0), (15, 15, 15), (15, 0, 15), (0, 15, 0)
+    return table2, slot, o
+
+
 @pytest.mark.parametrize("slots", [81920, 6144, 512])
 def test_plane_gather_kernel_matches_plain(cuda, rng, slots):
-    P = 16
-    table2 = torch.from_numpy(rng.integers(
-        -2**31, 2**31 - 1, (slots + 1, P, P)).astype(np.int32)).to(cuda)
-    table2[slots] = 0
-    slot = torch.from_numpy(
-        rng.integers(-2, slots + 3, (1024, 2, 2, 2)).astype(np.int32)).to(cuda)
-    before = gather_planes.launches
-    out = gather_planes(table2, slot)
+    """K2 (the plane gather writing finished patches) bit-identical to its
+    plain version at the three table sizes, one launch."""
+    args = [torch.from_numpy(a).to(cuda) for a in _random_query(rng, slots)]
+    before = patches_from_planes.launches
+    out = patches_from_planes(*args)
     torch.cuda.synchronize()
-    assert gather_planes.launches == before + 1
-    assert torch.equal(out, gather_planes_plain(table2, slot))
+    assert patches_from_planes.launches == before + 1
+    assert torch.equal(out, patches_from_planes_plain(*args))
+
+
+def test_plane_gather_kernel_all_masked_and_empty(cuda, rng):
+    """Keypoints whose 8 slots all name the zero plane give all-zero patches;
+    no keypoints give an empty patch tensor and no launch."""
+    table2, slot, o = _random_query(rng, 512, K=32)
+    slot[:] = 512
+    args = [torch.from_numpy(a).to(cuda) for a in (table2, slot, o)]
+    out = patches_from_planes(*args)
+    torch.cuda.synchronize()
+    assert out.shape == (32, 16, 16, 16) and not bool(out.any())
+    before = patches_from_planes.launches
+    empty = patches_from_planes(args[0], args[1][:0], args[2][:0])
+    assert empty.shape == (0, 16, 16, 16)
+    assert patches_from_planes.launches == before
+
+
+def _sensor(H, W):
+    """A sensor whose model image is (H, W): 9 deg azimuth steps (40 ring
+    columns), W of them kept, 2 spare rows on top."""
+    return SensorConfig(n_lines=H, azimuth_res_deg=9.0, safe_edge_top=2,
+                        crop_width=40 - W, edge_filter=2, visible_bottom=5.0)
+
+
+def _score_inputs(rng, shape, sensor, occupied=0.6):
+    """Relu'd respond planes ``shape`` (.., 8, H, W), and a ring image and
+    counter of the sensor's (ImgH, ImgW) with random z and range."""
+    lead, (H, W) = shape[:-3], shape[-2:]
+    ih, iw = sensor.img_h, sensor.img_w
+    planes = np.maximum(rng.normal(0, 15, shape), 0).astype(np.float32)
+    image = np.zeros(lead + (ih, iw, 5), np.float32)
+    image[..., 2] = rng.uniform(-3.0, 2.0, lead + (ih, iw))
+    image[..., 4] = rng.uniform(0.0, 40.0, lead + (ih, iw))
+    counter = (rng.uniform(size=lead + (ih, iw)) < occupied) * rng.integers(
+        1, 4, lead + (ih, iw))
+    return planes, image, counter.astype(np.int32)
+
+
+def _assert_scores_match(got, want, thr):
+    """K1 against its plain version: n_occ, finiteness of min_d2 and zext
+    exact; min_d2 within atol 1e-4 / rtol 1e-5 (8-term float32 sums); the
+    good mask exact except where saliency lies within 1e-5 of the
+    threshold; score within atol 1e-4 where both pass."""
+    assert torch.equal(got.n_occ, want.n_occ)
+    fin = torch.isfinite(want.min_d2)
+    assert torch.equal(torch.isfinite(got.min_d2), fin)
+    torch.testing.assert_close(got.min_d2[fin], want.min_d2[fin], atol=1e-4,
+                               rtol=1e-5)
+    assert torch.equal(got.zext, want.zext)
+    good, good_ref = torch.isfinite(got.score), torch.isfinite(want.score)
+    near = (want.saliency - thr).abs() <= 1e-5
+    assert torch.equal(good & ~near, good_ref & ~near)
+    both = good & good_ref
+    torch.testing.assert_close(got.score[both], want.score[both], atol=1e-4,
+                               rtol=0)
+    torch.testing.assert_close(got.saliency, want.saliency, atol=1e-4,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("batch", [None, 3])
+@pytest.mark.parametrize("ground_gate", [True, False])
+def test_keypoint_score_kernel_matches_plain(cuda, rng, batch, ground_gate):
+    """K1 (saliency and gates in one pass) at the default config's frame
+    shape, one frame and a batch, with and without the ground gate."""
+    sensor = SensorConfig()
+    kp = KeypointConfig() if ground_gate else KeypointConfig(
+        ground_z_max=-200.0)
+    lead = () if batch is None else (batch,)
+    arrs = _score_inputs(rng, lead + (8, sensor.model_h, sensor.model_w),
+                         sensor)
+    planes, image, counter = (torch.from_numpy(a).to(cuda) for a in arrs)
+    before = keypoint_score.launches
+    got = keypoint_score(planes, image, counter, sensor, kp, extras=True)
+    torch.cuda.synchronize()
+    assert keypoint_score.launches == before + 1
+    want = keypoint_score_plain(planes, image, counter, sensor, kp,
+                                extras=True)
+    _assert_scores_match(got, want, kp.norm_diff_threshold)
+    assert int(torch.isfinite(want.score).sum()) > 100
+
+
+@pytest.mark.parametrize("W", [37, 40])
+def test_keypoint_score_kernel_borders(cuda, rng, W):
+    """K1 on a 13-row frame narrower than a tile, at a width that takes the
+    scalar loads (37) and one that takes the 16-byte copies (40), with
+    sparse occupancy so that many pixels have no occupied neighbour: the
+    zero padding outside the image, the crop and the empty windows agree
+    with the plain version.  saliency_map (no gates) agrees too."""
+    sensor = _sensor(13, W)
+    kp = KeypointConfig(min_neighbors=1, norm_diff_threshold=0.0)
+    arrs = _score_inputs(rng, (8, 13, W), sensor, occupied=0.15)
+    planes, image, counter = (torch.from_numpy(a).to(cuda) for a in arrs)
+    got = keypoint_score(planes, image, counter, sensor, kp, extras=True)
+    want = keypoint_score_plain(planes, image, counter, sensor, kp,
+                                extras=True)
+    torch.cuda.synchronize()
+    _assert_scores_match(got, want, kp.norm_diff_threshold)
+    assert not bool(torch.isfinite(want.min_d2).all())      # empty windows
+    assert bool(torch.isfinite(want.score).any())
+    occ = counter[:13, :W] > 0
+    md, cnt = saliency_map(planes, occ)
+    md_ref, cnt_ref = saliency_map_plain(planes, occ)
+    assert torch.equal(cnt, cnt_ref)
+    fin = torch.isfinite(md_ref)
+    assert torch.equal(torch.isfinite(md), fin)
+    torch.testing.assert_close(md[fin], md_ref[fin], atol=1e-4, rtol=1e-5)
 
 
 def _scan(cfg, shift):

@@ -2,15 +2,20 @@
 (dense slot map at scales 1-2, bitmap popcount-rank at scale 0), bit-exact
 against the JAX package, plus the popcount helper."""
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 from caelo_tpu.config import tiny_test_config
 from caelo_tpu.data.synthetic import synthetic_scan_pair
+from caelo_tpu.ops import pallas_patches
 from caelo_tpu.voxel import grid as jgrid
+from caelo_tpu_torch.ops.plane_gather import (patches_from_planes,
+                                              patches_from_planes_plain)
 from caelo_tpu_torch.voxel import grid as tgrid
 
 CFG = tiny_test_config()
@@ -96,3 +101,53 @@ def test_slot_lookup_saturates_like_jax(scan, rng):
                                 tpyr, vcfg)
     for s in range(3):
         np.testing.assert_array_equal(out[s].numpy(), np.asarray(ref[s]))
+
+
+class _TpuDispatch:
+    """``jax`` as ``caelo_tpu.voxel.grid`` sees it, except that
+    ``default_backend()`` says "tpu": its bit-table query then dispatches to
+    the Pallas plane gather (run here in interpret mode) as on the TPU."""
+
+    def __getattr__(self, name):
+        return getattr(jax, name)
+
+    @staticmethod
+    def default_backend():
+        return "tpu"
+
+
+@pytest.mark.parametrize("plane_gather", [False, True])
+def test_patches_from_planes_plain_matches_jax(scan, rng, plane_gather,
+                                               monkeypatch):
+    """K2's plain version on the port's bit-table query against JAX's
+    _patches_one_scale_bitgrid at all three scales, bit for bit: with
+    use_pallas_plane_gather off (JAX indexes ``table2[slot]``) and on (JAX
+    runs its Pallas plane gather, in interpret mode); the wrapper takes the
+    plain version on the CPU."""
+    pts, mask = scan
+    kp, km = _keypoints(pts, mask, rng)
+    vcfg = dataclasses.replace(CFG.voxel, use_pallas_plane_gather=plane_gather)
+    pyr = jgrid.voxelize(jnp.asarray(pts[:, :3]), jnp.asarray(mask), vcfg)
+    tpyr = tgrid.voxelize(torch.from_numpy(pts[:, :3]), torch.from_numpy(mask),
+                          vcfg)
+    if plane_gather:
+        calls = []
+        pallas = pallas_patches.gather_planes_pallas
+        monkeypatch.setattr(jgrid, "jax", _TpuDispatch())
+        monkeypatch.setattr(
+            pallas_patches, "gather_planes_pallas",
+            lambda *a: calls.append(1) or pallas(*a, interpret=True))
+    for s, slots in enumerate(vcfg.bitgrid_slots):
+        kv = tgrid.keypoint_voxels(torch.from_numpy(kp), s, vcfg)
+        ref = np.asarray(jgrid._patches_one_scale_bitgrid(
+            jnp.asarray(kv.numpy()), jnp.asarray(km), pyr.coords[s],
+            pyr.masks[s], vcfg, s, slots))
+        query = tgrid.bitgrid_query(kv, torch.from_numpy(km),
+                                    tpyr.coords[s], tpyr.masks[s], vcfg, s,
+                                    slots)
+        out = patches_from_planes_plain(*query)
+        np.testing.assert_array_equal(out.numpy(), ref)
+        assert torch.equal(patches_from_planes(*query), out)
+        assert ref[km].sum() > 0 and ref[~km].sum() == 0
+    if plane_gather:
+        assert len(calls) == 3
