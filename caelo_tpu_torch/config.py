@@ -1,7 +1,7 @@
 """The pipeline configuration of the port: frozen dataclasses.
 
-A copy of ``caelo_tpu/config.py`` (every dataclass and
-``tiny_test_config``), kept in the port so that the port imports nothing of
+A copy of ``caelo_tpu/config.py`` (every dataclass, ``small_test_config``,
+``ci_config`` and ``tiny_test_config``), kept in the port so that the port imports nothing of
 the JAX package and an edit there cannot silently change the port.  The
 field names and defaults are the JAX package's, with one exception:
 ``VoxelConfig.use_pallas_plane_gather`` defaults to True here.  The port's
@@ -337,6 +337,33 @@ class PipelineConfig:
     # (64 frames x 3072 patches x 16^3 x 8ch f32 = 25.7 GB unchunked — OOMs
     # a 16 GB v5e).  0 = single unchunked call.
     encoder_chunk: int = 1024
+
+
+def small_test_config() -> PipelineConfig:
+    """A scaled-down config for fast CPU tests (same code paths)."""
+    return PipelineConfig(
+        voxel=VoxelConfig(max_voxels=(16384, 8192, 2048), patch_knn=128),
+        ransac=RansacConfig(n_hypotheses=512),
+        icp=IcpConfig(max_points=1024, max_planar=256, max_iters=10),
+        max_points=16384,
+    )
+
+
+def ci_config() -> PipelineConfig:
+    """CPU-suite scale for the hard ray-cast benchmarks (0.8 deg azimuth,
+    ~25k pts/frame): every code path of the full config, ~16x less work.
+    The voxel caps are sized so the scale-0/1 occupied-voxel lists do NOT
+    saturate (~25.3k / ~16k occupied): a saturated list silently truncates
+    patches and degrades registration (measured: RTE 0.25 m -> 0.06 m on
+    pair 0)."""
+    cfg0 = small_test_config()
+    return dataclasses.replace(
+        cfg0,
+        sensor=dataclasses.replace(cfg0.sensor, azimuth_res_deg=0.8),
+        max_points=32768,
+        voxel=dataclasses.replace(cfg0.voxel,
+                                  max_voxels=(49152, 24576, 6144)),
+    )
 
 
 def tiny_test_config() -> PipelineConfig:

@@ -2,8 +2,9 @@
 
 The port's own copy of the scene generators of
 ``caelo_tpu/data/synthetic.py`` (``make_scene``, ``sample_scene_points``,
-``range_filter``): numpy, and given the same arguments bit-identical to the
-JAX package's, as ``tests/test_torch_imports.py`` checks.  Surface points
+``range_filter``, ``synthetic_scan_pair``): numpy, and given the same
+arguments bit-identical to the JAX package's, as
+``tests/test_torch_imports.py`` checks.  Surface points
 sampled from ground, building facades and poles, so the whole pipeline runs
 end to end with known ground-truth motion and no dataset.
 """
@@ -11,7 +12,10 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..config import SensorConfig
+from ..config import PipelineConfig, SensorConfig
+from ..geometry.se3 import correct_beam_angle_np
+from ..ops.masking import pad_points
+
 
 def _boxes(rng: np.random.Generator, n: int, extent: float):
     """Random axis-aligned 'building' boxes: (center_xy, size_xy, height)."""
@@ -95,3 +99,49 @@ def range_filter(pts: np.ndarray, sensor: SensorConfig = SensorConfig()):
         & (el < np.radians(sensor.vertical_view_up_deg))
     )
     return pts[keep]
+
+
+def synthetic_scan_pair(seed: int = 0, cfg: PipelineConfig = PipelineConfig(),
+                        angle_deg: float = 1.5,
+                        translation=(1.2, 0.15, 0.02),
+                        beam_error_deg: float = 0.0):
+    """Two padded scans of the same scene from poses related by a known
+    rigid motion.  Returns (scan0, mask0, scan1, mask1, R_gt, t_gt) where
+    ``R_gt, t_gt`` map frame-1 points into frame 0 (reference convention).
+
+    ``beam_error_deg`` simulates the Velodyne beam-angle miscalibration the
+    reference corrects at load time (``GenerateTrajactory.m:186-190``): each
+    emitted point is rotated by ``-beam_error_deg`` about ``p x z``, so
+    applying ``correct_beam_angle(+beam_error_deg)`` restores the true
+    geometry (see ``kitti.apply_beam_correction``).
+    """
+    scene = make_scene(seed)
+    world = sample_scene_points(scene, seed, n_points=cfg.max_points)
+
+    a = np.radians(angle_deg)
+    R = np.array(
+        [
+            [np.cos(a), -np.sin(a), 0.0],
+            [np.sin(a), np.cos(a), 0.0],
+            [0.0, 0.0, 1.0],
+        ],
+        dtype=np.float64,
+    )
+    t = np.asarray(translation, dtype=np.float64)
+
+    def scan_from(world_pts, sensor_R, sensor_t, sub_seed):
+        # world -> sensor frame: x_s = R^T (x_w - t)
+        local = (world_pts - sensor_t) @ sensor_R
+        local = range_filter(local.astype(np.float32), cfg.sensor)
+        if beam_error_deg:
+            local = correct_beam_angle_np(local, -beam_error_deg)
+        rng = np.random.default_rng(sub_seed)
+        local = local + rng.normal(0, 0.005, local.shape).astype(np.float32)
+        refl = rng.uniform(0, 1, (local.shape[0], 1)).astype(np.float32)
+        pts4 = np.concatenate([local, refl], axis=1)
+        return pad_points(pts4, cfg.max_points)
+
+    scan0, mask0 = scan_from(world, np.eye(3), np.zeros(3), seed + 10)
+    # frame-1 sensor pose in world: (R, t) so that x0 = R x1 + t
+    scan1, mask1 = scan_from(world, R, t, seed + 11)
+    return scan0, mask0, scan1, mask1, R, t

@@ -1,13 +1,14 @@
-"""Windowed sequence odometry (port of
-``caelo_tpu/frontend/odometry.py::run_odometry_windowed``).
+"""Sequence odometry (port of ``caelo_tpu/frontend/odometry.py``): the
+frame-by-frame driver ``run_odometry`` and the windowed driver
+``run_odometry_windowed``.
 
-Feature extraction and registration run on the device one window at a time;
-the pose chain -- the only sequential dependency -- is host float64.
+Feature extraction and registration run on the device; the pose chain --
+the only sequential dependency -- is host float64.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import Callable, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -17,7 +18,8 @@ from ..config import PipelineConfig
 from .. import setup_device
 from ..geometry.kitti_pose import chain_poses
 from ..parallel.pipeline import make_sequence_processor
-from .registration import FrameFeatures
+from .registration import (FrameFeatures, extract_frame_features,
+                           register_pair, register_pair_with_prior)
 
 
 @dataclasses.dataclass
@@ -29,6 +31,99 @@ class OdometryResult:
     n_inliers: np.ndarray             # (N-1,) int
     inlier_pairs: List                # per pair: (idx0, idx1) int arrays
     thresholds: np.ndarray = None     # (N-1,) accepted RANSAC rung (m)
+
+
+def _plausible(R, t, cfg: PipelineConfig) -> bool:
+    """The physical-plausibility gate (``cfg.max_rel_rot_deg``): a per-pair
+    motion impossible at scan rate is an aliased consensus, not a
+    success."""
+    if cfg.max_rel_rot_deg <= 0:
+        return True
+    ang = np.degrees(np.arccos(np.clip((np.trace(R) - 1.0) / 2.0, -1.0, 1.0)))
+    return not (ang > cfg.max_rel_rot_deg
+                or np.linalg.norm(t) > cfg.max_rel_trans_m)
+
+
+def run_odometry(scans: Iterable, respond_net, encoder, R_tr=None, t_tr=None,
+                 cfg: PipelineConfig = PipelineConfig(), seed: int = 0,
+                 feature_fn: Optional[Callable] = None,
+                 progress: Optional[Callable[[int], None]] = None,
+                 samples=None) -> OdometryResult:
+    """Frame-to-frame odometry over an iterable of ``(pts, mask)`` scans,
+    one frame and one pair at a time, on the device of ``respond_net``'s
+    parameters.
+
+    ``feature_fn(pts, mask) -> FrameFeatures`` replaces the CAE-LO front
+    end (keypoint-source ablations); by default it is
+    ``extract_frame_features``.  A pair that fails plain registration is
+    retried with the constant-velocity motion prior gating the candidate
+    matches (``cfg.prior_gate_m``); a success that fails the plausibility
+    gate is demoted; a failed pair takes the previous pair's motion
+    (constant velocity) and stays recorded as a failure for the back end.
+    ``progress(i)`` is called after frame ``i``.
+
+    ``samples``, if given, is ``(pass1, pass2)``: ``(n-1, H, S)`` RANSAC
+    pair indices per pair for the plain pass and the motion-prior retry
+    (the parity seam of ``ransac_rigid``); otherwise draws come from a
+    ``torch.Generator`` seeded with ``seed``.
+    """
+    if R_tr is None:
+        R_tr = np.eye(3)
+    if t_tr is None:
+        t_tr = np.zeros(3)
+    device = setup_device(next(respond_net.parameters()).device)
+    if feature_fn is None:
+        def feature_fn(pts, mask):
+            return extract_frame_features(
+                respond_net, encoder, torch.as_tensor(pts).to(device),
+                torch.as_tensor(mask).to(device), cfg)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    draw = lambda k, p: None if samples is None else torch.as_tensor(
+        samples[p][k])
+
+    rel_Rs, rel_ts, succ, n_inl, pairs, ths = [], [], [], [], [], []
+    prev_feat: FrameFeatures | None = None
+    prevR, prevT = np.eye(3), np.zeros(3)
+    for i, (pts, mask) in enumerate(scans):
+        feat = feature_fn(pts, mask)
+        if prev_feat is not None:
+            reg = register_pair(prev_feat, feat, cfg, generator=generator,
+                                samples=draw(i - 1, 0))
+            ok = bool(reg.success)
+            if not ok and cfg.prior_gate_m > 0.0:
+                # retry with the constant-velocity motion prior gating the
+                # candidate matches (GenerateTrajactory.m:210 semantics)
+                prior = lambda a: torch.as_tensor(a, dtype=torch.float32,
+                                                  device=device)
+                reg = register_pair_with_prior(
+                    prev_feat, feat, prior(prevR), prior(prevT), cfg,
+                    generator=generator, samples=draw(i - 1, 1))
+                ok = bool(reg.success)
+            R = reg.R.double().cpu().numpy()
+            t = reg.t.double().cpu().numpy()
+            ok = ok and _plausible(R, t, cfg)
+            if not ok:
+                R, t = prevR, prevT           # constant-velocity fallback
+            inl = reg.inlier_mask.cpu().numpy()
+            pairs.append((reg.inlier_idx0.cpu().numpy()[inl],
+                          reg.inlier_idx1.cpu().numpy()[inl]))
+            rel_Rs.append(R)
+            rel_ts.append(t)
+            succ.append(ok)
+            n_inl.append(int(reg.n_inliers))
+            ths.append(float(reg.threshold))
+            prevR, prevT = R, t
+        prev_feat = feat
+        if progress is not None:
+            progress(i)
+
+    rel_Rs = np.array(rel_Rs).reshape(-1, 3, 3)
+    rel_ts = np.array(rel_ts).reshape(-1, 3)
+    return OdometryResult(
+        poses=chain_poses(rel_Rs, rel_ts, np.asarray(R_tr), np.asarray(t_tr)),
+        rel_Rs=rel_Rs, rel_ts=rel_ts, successes=np.array(succ, bool),
+        n_inliers=np.array(n_inl, np.int32), inlier_pairs=pairs,
+        thresholds=np.array(ths, np.float32))
 
 
 def window_starts(n: int, window: int) -> list:
@@ -46,9 +141,15 @@ def run_odometry_windowed(scans, respond_net, encoder, R_tr=None, t_tr=None,
                           window: int = 16, seed: int = 0,
                           keep_features: bool = False,
                           keep_refine_features: bool = False,
-                          samples=None) -> tuple:
-    """Windowed frame-to-frame odometry over ``scans``, a sequence of
-    ``(pts (N, 4), mask (N,))`` numpy arrays or tensors.
+                          samples=None,
+                          progress: Optional[Callable[[int], None]] = None
+                          ) -> tuple:
+    """Windowed frame-to-frame odometry over ``scans``, ``(pts (N, 4), mask
+    (N,))`` numpy arrays or tensors.  An indexable sequence (a list, a
+    ``data.scancache.NpyScanReader``) is read one window at a time; any
+    other iterable (a generator such as ``KittiOdometry.iter_scans``) is
+    listed first.  ``progress(j)`` is called with the last frame of each
+    window once it is done.
 
     Runs on the device of ``respond_net``'s parameters.  Each window is one
     call of the window processor; windows overlap by one frame.  Unlike the
@@ -70,6 +171,8 @@ def run_odometry_windowed(scans, respond_net, encoder, R_tr=None, t_tr=None,
         R_tr = np.eye(3)
     if t_tr is None:
         t_tr = np.zeros(3)
+    if not (hasattr(scans, "__getitem__") and hasattr(scans, "__len__")):
+        scans = list(scans)
     n = len(scans)
     if n < 2:
         raise ValueError("odometry needs at least two scans")
@@ -111,16 +214,7 @@ def run_odometry_windowed(scans, respond_net, encoder, R_tr=None, t_tr=None,
             g = start + k
             rel_Rs[g] = R_all[k]
             rel_ts[g] = t_all[k]
-            ok = bool(s_all[k])
-            if ok and cfg.max_rel_rot_deg > 0:
-                # physical-plausibility gate: a per-pair motion impossible
-                # at scan rate is an aliased consensus, not a success
-                ang = np.degrees(np.arccos(np.clip(
-                    (np.trace(R_all[k]) - 1.0) / 2.0, -1.0, 1.0)))
-                if (ang > cfg.max_rel_rot_deg
-                        or np.linalg.norm(t_all[k]) > cfg.max_rel_trans_m):
-                    ok = False
-            succ[g] = ok
+            succ[g] = bool(s_all[k]) and _plausible(R_all[k], t_all[k], cfg)
             n_inl[g] = int(ni_all[k])
             ths[g] = float(th_all[k])
             pairs[g] = (idx0[k][inl_mask[k]], idx1[k][inl_mask[k]])
@@ -130,6 +224,8 @@ def run_odometry_windowed(scans, respond_net, encoder, R_tr=None, t_tr=None,
             if keep_refine_features:
                 ref_windows.append(RefinementFeatures(
                     *(x[j0:] for x in out[1])))
+        if progress is not None:
+            progress(stop - 1)
 
     cat = lambda cls, windows: cls(*(torch.cat(xs) for xs in zip(*windows)))
     feats_out = cat(FrameFeatures, feat_windows) if keep_features else None

@@ -2,7 +2,8 @@
 
 Copied from ``caelo_tpu/geometry/kitti_pose.py``, a module that imports
 JAX: pose chains are never computed in device float32 (a chained product
-of thousands of 4x4s drifts measurably off SO(3) there).
+of thousands of 4x4s drifts measurably off SO(3) there).  ``load_calib_tr``
+reads the lidar->camera calibration of a KITTI ``calib.txt``.
 """
 from __future__ import annotations
 
@@ -99,3 +100,36 @@ def chain_poses(rel_Rs, rel_ts, R_tr, t_tr, pose0=None):
         R = np.stack([r0, r1, np.cross(r0, r1)])
         out[k + 1] = np.concatenate([R, t[:, None]], axis=1).reshape(12)
     return out
+
+
+def rt_to_poses(R, t):
+    """``(R (..., 3, 3), t (..., 3))`` -> ``(..., 12)`` pose rows."""
+    P = np.concatenate([np.asarray(R), np.asarray(t)[..., :, None]], axis=-1)
+    return P.reshape(P.shape[:-2] + (12,))
+
+
+def load_calib_tr(path: str):
+    """Load the 3x4 lidar->camera ``Tr`` row from a KITTI ``calib.txt``.
+
+    The reference reads a pre-stripped ``calib_.txt`` whose 5th row is ``Tr``
+    (``Match.py:362-364``); we handle both the raw ``key: values`` format and
+    the stripped numeric table.
+    """
+    rows = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            if ":" in line:
+                key, vals = line.split(":", 1)
+                rows.append((key.strip(), np.fromstring(vals, sep=" ")))
+            else:
+                rows.append((None, np.fromstring(line, sep=" ")))
+    for key, vals in rows:
+        if key == "Tr":
+            M = vals.reshape(3, 4)
+            return M[:, :3].astype(np.float64), M[:, 3].astype(np.float64)
+    # stripped format: 5th numeric row is Tr
+    M = rows[4][1].reshape(3, 4)
+    return M[:, :3].astype(np.float64), M[:, 3].astype(np.float64)

@@ -5,12 +5,14 @@ window, the ICP refinement, the burst rescue and the pose graph run.  The
 3x3 algebra is broadcast products and sums, full float32 whatever the TF32
 settings.  Shapes are polymorphic over leading
 batch dimensions, as in the JAX module.  A transform is ``(R, t)``,
-``(..., 3, 3)`` and ``(..., 3)``, mapping ``x -> R x + t``.
+``(..., 3, 3)`` and ``(..., 3)``, mapping ``x -> R x + t``.  The scan
+loaders' beam-angle fix, ``correct_beam_angle_np``, is host numpy.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 RADIAN2DEGREE = 180.0 / math.pi
@@ -223,3 +225,24 @@ def rotation_geodesic_deg(R0: torch.Tensor, R1: torch.Tensor) -> torch.Tensor:
     tr = Rrel[..., 0, 0] + Rrel[..., 1, 1] + Rrel[..., 2, 2]
     c = torch.clamp((tr - 1.0) / 2.0, -1.0, 1.0)
     return torch.arccos(c) * RADIAN2DEGREE
+
+
+def correct_beam_angle_np(pts, angle_deg: float = 0.22):
+    """Velodyne beam-angle intrinsic correction on the host (numpy copy of
+    ``caelo_tpu/geometry/se3.py::correct_beam_angle_np``): rotate each point
+    by ``angle_deg`` about the axis ``p x z`` (Rodrigues on the per-point
+    axis).  Scan loading is host code, so the fix never touches the device.
+
+    A point exactly on the z axis has no rotation axis and is left as it
+    is (the reference collapses it to the origin)."""
+    pts = np.asarray(pts)
+    z = np.array([0.0, 0.0, 1.0], pts.dtype)
+    axis = np.cross(pts, z)
+    n = np.linalg.norm(axis, axis=-1, keepdims=True)
+    k = axis / np.where(n < 1e-12, 1.0, n)
+    th = np.float32(np.radians(angle_deg))
+    # Rodrigues rotation of p about unit axis k by angle th
+    out = (pts * np.cos(th)
+           + np.cross(k, pts) * np.sin(th)
+           + k * np.sum(k * pts, axis=-1, keepdims=True) * (1 - np.cos(th)))
+    return np.where(n < 1e-12, pts, out).astype(pts.dtype)

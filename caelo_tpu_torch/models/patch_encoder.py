@@ -1,15 +1,17 @@
-"""3D voxel-patch descriptor encoder (port of
-``caelo_tpu/models/patch_encoder.py::PatchEncoder``).
+"""3D voxel-patch descriptor encoder and its auto-encoder (port of
+``caelo_tpu/models/patch_encoder.py``).
 
-16^3 occupancy patch -> conv(8) -> pool -> conv(16) -> pool -> conv(32) ->
-flatten -> dense(200) -> dense(code_dim).  The shipped reference weights use
-tanh everywhere (the default); the reference training recipe gives relu
-convs and a linear code, selected by the activation names.
+``PatchEncoder``: 16^3 occupancy patch -> conv(8) -> pool -> conv(16) ->
+pool -> conv(32) -> flatten -> dense(200) -> dense(code_dim).  The shipped
+reference weights use tanh everywhere (the default); the reference training
+recipe gives relu convs and a linear code, selected by the activation names.
+``VoxelPatchAE`` adds the decoder that trains it (submodule ``encoder``).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 _ACTIVATIONS = {
     "tanh": torch.tanh,
@@ -49,3 +51,39 @@ class PatchEncoder(nn.Module):
         h = h.permute(0, 2, 3, 4, 1).reshape(h.shape[0], -1)
         h = a(self.fn1(h))
         return _ACTIVATIONS[self.code_activation](self.fn2(h))
+
+
+class VoxelPatchAE(nn.Module):
+    """Full AE for unsupervised training (binary cross-entropy loss,
+    ``AE4VoxelPatch.py:198-207``): encoder -> dense 200 -> dense 2048 ->
+    4^3 x 32 -> conv / upsample stack -> occupancy logits.
+
+    ``fn4``'s 2048 outputs are read channels-last, as Flax reshapes them to
+    ``(N, 4, 4, 4, 32)``, then permuted to NCDHW: ``fn4`` takes the Flax
+    kernel's columns unchanged (the mirror of ``PatchEncoder``'s permute
+    before ``fn1``).
+    """
+
+    def __init__(self, code_dim: int = 20, activation: str = "relu",
+                 code_activation: str = "linear"):
+        super().__init__()
+        self.activation = activation
+        self.encoder = PatchEncoder(code_dim, activation, code_activation)
+        self.fn3 = nn.Linear(code_dim, 200)
+        self.fn4 = nn.Linear(200, 4 * 4 * 4 * 32)
+        self.conv2_1 = nn.Conv3d(32, 16, 3, padding=1)
+        self.conv2_2 = nn.Conv3d(16, 8, 3, padding=1)
+        self.out = nn.Conv3d(8, 1, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``(N, 16, 16, 16)`` (or ``(..., 1)``) occupancy -> ``(N, 16, 16,
+        16)`` logits, the sigmoid left to the loss."""
+        a = _ACTIVATIONS[self.activation]
+        h = a(self.fn3(self.encoder(x)))
+        h = a(self.fn4(h))
+        h = h.reshape(h.shape[0], 4, 4, 4, 32).permute(0, 4, 1, 2, 3)
+        h = a(self.conv2_1(h))
+        h = F.interpolate(h, scale_factor=2, mode="nearest")
+        h = a(self.conv2_2(h))
+        h = F.interpolate(h, scale_factor=2, mode="nearest")
+        return self.out(h)[:, 0]

@@ -458,14 +458,18 @@ def load_stage_inputs(store: ArtifactStore, seq: str, device="cuda"):
 def preprocess_to_store(scans, respond_net, encoder, R_tr, t_tr,
                         cfg: PipelineConfig, store: ArtifactStore, seq: str,
                         seed: int = 0, window: int = 16,
-                        samples=None) -> OdometryResult:
+                        samples=None,
+                        progress: Optional[Callable[[int], None]] = None
+                        ) -> OdometryResult:
     """Front-end pass that persists every artifact the back end needs.
-    ``samples`` is the RANSAC seam of ``run_odometry_windowed``."""
-    scans = list(scans)
+    ``samples`` and ``progress`` are those of ``run_odometry_windowed``; an
+    indexable sequence of scans is read one window at a time."""
+    if not (hasattr(scans, "__getitem__") and hasattr(scans, "__len__")):
+        scans = list(scans)
     odo, feats, ref_feats = run_odometry_windowed(
         scans, respond_net, encoder, R_tr, t_tr, cfg,
         window=min(window, len(scans)), seed=seed,
-        keep_refine_features=True, samples=samples)
+        keep_refine_features=True, samples=samples, progress=progress)
     save_stage_outputs(store, seq, odo, feats, ref_feats, R_tr, t_tr)
     return odo
 

@@ -5,6 +5,10 @@
   ``report``).  With ``sync`` and a CUDA device it synchronises the device
   at both ends of a stage, so a stage's wall time holds the device work it
   queued and none that an earlier stage left running.
+* ``trace``: a named region in the PyTorch profiler around a block, and
+  with a ``logdir`` a profile of the block's CPU and CUDA activity written
+  there as a Chrome trace (``torch.profiler`` in place of
+  ``jax.profiler``).
 * ``MetricsLog``: an append-only JSONL run log, one record per event, in the
   JAX package's format.
 """
@@ -56,6 +60,31 @@ class StageTimer:
 
     def report(self) -> str:
         return json.dumps(self.summary(), indent=2)
+
+
+@contextlib.contextmanager
+def trace(logdir: str | None = None, name: str = "caelo"):
+    """Mark the block as the region ``name`` (``record_function``, shown in
+    any active profiler's trace).  With ``logdir`` the block is profiled
+    (CPU, and CUDA where a device is present) and its Chrome trace written
+    to ``<logdir>/<name>.trace.json``, also when the block raises; view it
+    in Perfetto or ``chrome://tracing``."""
+    if not logdir:
+        with torch.profiler.record_function(name):
+            yield
+        return
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    try:
+        with torch.profiler.record_function(name):
+            yield
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(logdir, f"{name}.trace.json"))
 
 
 class MetricsLog:

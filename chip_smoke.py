@@ -37,18 +37,42 @@ Phases (each raises on failure; the script then exits nonzero):
    accepted, every pose is finite and on SO(3), and K1 and K2 ran on every
    frame; logs each stage's ATE against the ground truth, loop
    precision/recall, the burst and closure stats, stage times and peak
-   memory.
+   memory;
+8. training at full width: ``cli.main(["train-respond", "--synthetic",
+   ...])`` at the default batch of 16 ring images (3 x 64 x 1792) and
+   ``train-patch`` at the default batch of 256 patches; checkpoints written
+   and reloaded bit-equal, finite losses, K1 and K2 launched per scan of
+   the patch trainer's data path; 20 steps at lr 3e-3 on one fixed
+   full-width batch of each lower the loss by the JAX tests' margins
+   (``tests/test_training.py``); the trained submodels
+   (``respond_params_from_ae``, ``encoder_params_from_ae``) drive one
+   front-end window at the relu / linear encoder activations; ms per train
+   step (device, synchronised) apart from the host data ms;
+9. the command line on a KITTI tree: phase 5's 17 scans written as
+   ``.bin`` files with a ``calib.txt`` whose Tr is not trivial and the
+   ground-truth ``poses/00.txt``; ``odometry``, ``full --frames 17
+   --no-loops``, ``preprocess``, ``refine --artifacts``, ``loop --artifacts
+   --min-gap 10`` and ``evaluate`` in process through ``cli.main``, with
+   the ``.h5`` loaders answering ``random_flax_params(0)`` (the files are
+   not in the repository); every trajectory (17, 12), finite and on SO(3),
+   K1 and K2 on every frame, and each command's time.  Logs whether the
+   native scan loader was built.
 
-Kernel launches are counted on the main path only (runs A, 6a, 6d and 7),
-each count set to 0 just before its run and read just after.  Prints a
+Kernel launches are counted on the main path only (runs A, 6a, 6d, 7, the
+trainers and the window of phase 8, the commands of phase 9), each count
+set to 0 just before its run and read just after.  Prints a
 ``{"kernels": [...]}`` JSON line, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Without a CUDA device
 it fails; it never falls back to the CPU.
 """
+import contextlib
 import dataclasses
+import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -59,6 +83,11 @@ WINDOW = 16
 # tests/test_degraded_rescue.py, ray-cast at the sensor's own azimuth step
 CIRCUIT = dict(n_frames=88, seed=0, side=30.0, yaw_rate_deg=6.0, n_cars=3,
                degraded_spans=[(30, 42, 0.8, 140.0)], az_step_deg=0.2)
+# phase 8: steps of each trainer through the command line, and of the
+# loss-decrease check on one fixed batch (tests/test_training.py's recipe)
+TRAIN_STEPS = {"respond": 2, "patch": 6}
+FIXED_STEPS, FIXED_LR = 20, 3e-3
+LOSS_MARGIN = {"respond": 0.95, "patch": 0.8}
 REPS = 50            # kernel timing launches per arm
 STAGE_REPS = 20      # per-frame stage timings per arm
 WINDOW_REPS = 3      # warm window timings
@@ -384,6 +413,27 @@ def count_calls(module, name, record):
     return lambda: setattr(module, name, fn)
 
 
+def launch_counts():
+    from caelo_tpu_torch.ops.plane_gather import patches_from_planes
+    from caelo_tpu_torch.ops.saliency import keypoint_score
+
+    return {"saliency_map": keypoint_score.launches,
+            "gather_planes": patches_from_planes.launches}
+
+
+def reset_launches():
+    from caelo_tpu_torch.ops.plane_gather import patches_from_planes
+    from caelo_tpu_torch.ops.saliency import keypoint_score
+
+    keypoint_score.launches = 0
+    patches_from_planes.launches = 0
+
+
+def add_launches(total, more):
+    for name in total:
+        total[name] += more[name]
+
+
 def whole_pipeline(cfg, respond_net, encoder, card):
     """Phase 7: run_full_pipeline with every stage on the CI circuit with a
     burst.  Every line with a time ends with ``card`` (the nvidia-smi
@@ -396,8 +446,6 @@ def whole_pipeline(cfg, respond_net, encoder, card):
                                               loop_closure_pr,
                                               registration_summary,
                                               relative_pose_errors)
-    from caelo_tpu_torch.ops.plane_gather import patches_from_planes
-    from caelo_tpu_torch.ops.saliency import keypoint_score
     from caelo_tpu_torch.utils.telemetry import StageTimer
 
     t0 = time.perf_counter()
@@ -416,8 +464,7 @@ def whole_pipeline(cfg, respond_net, encoder, card):
     burst_mod.nearest_neighbors = lambda *a: nn_calls.append(1) or nn(*a)
     timer = StageTimer(sync=True)     # synchronises the card at both ends
     torch.cuda.reset_peak_memory_stats()
-    keypoint_score.launches = 0
-    patches_from_planes.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
@@ -430,8 +477,7 @@ def whole_pipeline(cfg, respond_net, encoder, card):
         for r in restore:
             r()
     t_all = time.perf_counter() - t0
-    launches = {"saliency_map": keypoint_score.launches,
-                "gather_planes": patches_from_planes.launches}
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
 
     summary = {k: round(v["total_s"] * 1e3, 1)
@@ -486,6 +532,290 @@ def whole_pipeline(cfg, respond_net, encoder, card):
     if launches["saliency_map"] < n or launches["gather_planes"] < 3 * n:
         raise AssertionError("run_full_pipeline did not run K1 and K2 per "
                              "frame")
+    return launches
+
+
+def run_cli(argv, card):
+    """``cli.main(argv)`` in this process, synchronised; echoes and returns
+    its standard output and its ms, and fails on a nonzero exit."""
+    import torch
+    from caelo_tpu_torch import cli
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    out = buf.getvalue()
+    for line in out.replace("\r", "\n").splitlines():
+        if line.strip():
+            log(f"  | {line}")
+    log(f"cli {argv[0]}: exit {rc}, {ms:.1f} ms; {card}")
+    if rc != 0:
+        raise AssertionError(f"cli {' '.join(argv)} exited {rc}")
+    return out, ms
+
+
+def training(cfg, dev, card, tmp):
+    """Phase 8: both trainers through the command line at full width, the
+    checkpoints, the loss decrease on one fixed batch, and the trained
+    submodels in one front-end window.  Returns the launch counts of the
+    trainers' data path and the window."""
+    import torch
+    import caelo_tpu_torch.training.drivers as drivers
+    from caelo_tpu_torch.frontend.odometry import run_odometry_windowed
+    from caelo_tpu_torch.models import weights_io
+    from caelo_tpu_torch.models.patch_encoder import VoxelPatchAE
+    from caelo_tpu_torch.models.respond_net import SphericalRingAE
+    from caelo_tpu_torch.training.train import (adam, create_train_state,
+                                                make_train_step, patch_loss,
+                                                respond_loss)
+    from caelo_tpu_torch.utils.telemetry import MetricsLog
+
+    launches = {"saliency_map": 0, "gather_planes": 0}
+    saved, scans_seen, losses = [], [], []
+    save = weights_io.save_checkpoint
+    scan_patches = drivers.scan_patches
+    make_step = drivers.make_train_step
+    weights_io.save_checkpoint = lambda path, sd, step=0: saved.append(
+        {k: v.detach().cpu().clone() for k, v in sd.items()}) or save(
+            path, sd, step)
+    drivers.scan_patches = lambda *a: scans_seen.append(1) or scan_patches(*a)
+
+    def recording_step(loss_fn):
+        step = make_step(loss_fn)
+
+        def recorded(state, batch):
+            state, loss = step(state, batch)
+            losses.append(float(loss))
+            return state, loss
+        return recorded
+
+    drivers.make_train_step = recording_step
+    outs = {}
+    try:
+        for tag in ("respond", "patch"):
+            out = os.path.join(tmp, f"train_{tag}")
+            reset_launches()
+            del scans_seen[:], losses[:]
+            run_cli([f"train-{tag}", "--data", tmp, "--synthetic",
+                     "--steps", str(TRAIN_STEPS[tag]), "--out", out], card)
+            used = launch_counts()
+            add_launches(launches, used)
+            rec = [r for r in MetricsLog(os.path.join(
+                out, "train_metrics.jsonl")).read()
+                if r["event"] == "train"][-1]
+            ck = weights_io.load_checkpoint(out)
+            if not (saved and ck.keys() == saved[-1].keys() and all(
+                    torch.equal(ck[k], saved[-1][k]) for k in ck)):
+                raise AssertionError(f"{tag}: checkpoint does not reload "
+                                     "bit-equal")
+            if (rec["steps"] != TRAIN_STEPS[tag]
+                    or len(losses) != TRAIN_STEPS[tag]
+                    or not np.isfinite(losses).all()
+                    or rec["final_loss"] != losses[-1]):
+                raise AssertionError(f"{tag}: train record {rec}, losses "
+                                     f"{losses}")
+            log(f"8 train-{tag}: {rec['steps']} steps at batch "
+                f"{16 if tag == 'respond' else 256}, losses "
+                f"{[round(x, 5) for x in losses]}; mean ms per step "
+                f"{rec['step_ms']} "
+                f"(device, synchronised), per batch of data "
+                f"{rec['data_ms']} (host generation and device "
+                f"preprocessing); checkpoint {len(ck)} tensors reloaded "
+                f"bit-equal; {card}")
+            if tag == "patch":
+                n = len(scans_seen)
+                log(f"8 patch data path: {n} scans, launches {used}")
+                if (n < 1 or used["saliency_map"] < n
+                        or used["gather_planes"] < 3 * n):
+                    raise AssertionError("the patch trainer did not run K1 "
+                                         "and K2 on every scan")
+            outs[tag] = out
+    finally:
+        weights_io.save_checkpoint = save
+        drivers.scan_patches = scan_patches
+        drivers.make_train_step = make_step
+
+    # 20 steps at lr 3e-3 on one fixed full-width batch of each
+    sph, vox = weights_io.random_ae_params(0)
+    t0 = time.perf_counter()
+    batch_r = next(drivers.respond_batches(
+        drivers.synthetic_scan_stream(cfg, seed=1), cfg, 16, device=dev))
+    reset_launches()
+    batch_p = next(drivers.patch_batches(
+        drivers.synthetic_scan_stream(cfg, seed=1), cfg, 256, device=dev))
+    add_launches(launches, launch_counts())
+    torch.cuda.synchronize()
+    log(f"8 fixed batches {tuple(batch_r.shape)} and {tuple(batch_p.shape)} "
+        f"made in {(time.perf_counter() - t0) * 1e3:.1f} ms; {card}")
+    for tag, model, params, conv, loss_fn, batch in (
+            ("respond", SphericalRingAE(), sph,
+             weights_io.spherical_ae_params_to_torch, respond_loss, batch_r),
+            ("patch", VoxelPatchAE(), vox, weights_io.voxel_ae_params_to_torch,
+             patch_loss, batch_p)):
+        model.load_state_dict(conv(params))
+        model.to(dev)
+        state = create_train_state(model, adam(model.parameters(), FIXED_LR))
+        step = make_train_step(loss_fn)
+        losses, step_ms = [], []
+        for _ in range(FIXED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+        log(f"8 {tag} AE, {FIXED_STEPS} steps at lr {FIXED_LR} on one batch "
+            f"{tuple(batch.shape)}: loss {losses[0]:.5f} -> {losses[-1]:.5f} "
+            f"(every 5th {[round(x, 5) for x in losses[::5]]}); ms per step "
+            f"median {float(np.median(step_ms)):.3f}, first "
+            f"{step_ms[0]:.3f}; {card}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{tag}: a non-finite loss")
+        if not losses[-1] < LOSS_MARGIN[tag] * losses[0]:
+            raise AssertionError(f"{tag}: the loss fell by less than "
+                                 f"{1 - LOSS_MARGIN[tag]:.0%}")
+
+    # the trained submodels drive one front-end window
+    cfg_t = dataclasses.replace(cfg, encoder_activation="relu",
+                                encoder_code_activation="linear")
+    net, enc = weights_io.build_models_from_state_dicts(
+        weights_io.respond_params_from_ae(
+            weights_io.load_checkpoint(outs["respond"])),
+        weights_io.encoder_params_from_ae(
+            weights_io.load_checkpoint(outs["patch"])), dev, cfg_t)
+    scans = make_scans(cfg)[:WINDOW]
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, feats = run_odometry_windowed(scans, net, enc, cfg=cfg_t,
+                                       window=WINDOW, keep_features=True)
+    torch.cuda.synchronize()
+    used = launch_counts()
+    add_launches(launches, used)
+    if not (np.isfinite(res.poses).all()
+            and bool(torch.isfinite(feats.descriptors).all())
+            and bool(feats.mask.any())):
+        raise AssertionError("the trained submodels gave non-finite output")
+    log(f"8 trained submodels, one {WINDOW}-frame window: "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms, pair successes "
+        f"{int(res.successes.sum())}/{WINDOW - 1}, keypoints per frame "
+        f"{feats.mask.sum(1).tolist()}, launches {used}; {card}")
+    if used["saliency_map"] < WINDOW or used["gather_planes"] < 3 * WINDOW:
+        raise AssertionError("the trained window did not run K1 and K2 per "
+                             "frame")
+    return launches
+
+
+def write_kitti_tree(root, scans, step):
+    """The scans as a KITTI sequence 00: unpadded ``.bin`` files, a
+    ``calib.txt`` whose Tr is the KITTI-style axis permutation and an
+    offset, and the ground-truth camera poses (the lidar moves by ``step``
+    per frame, no rotation)."""
+    velo = os.path.join(root, "sequences", "00", "velodyne")
+    os.makedirs(velo)
+    os.makedirs(os.path.join(root, "poses"))
+    for i, (pts, mask) in enumerate(scans):
+        pts[mask].astype(np.float32).tofile(os.path.join(velo, f"{i:06d}.bin"))
+    R_tr = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
+    t_tr = np.array([0.05, -0.1, -0.3])
+    calib = os.path.join(root, "sequences", "00", "calib.txt")
+    with open(calib, "w") as f:
+        for k in ("P0", "P1", "P2", "P3"):
+            f.write(f"{k}: " + " ".join(["0"] * 12) + "\n")
+        Tr = np.hstack([R_tr, t_tr[:, None]]).reshape(-1)
+        f.write("Tr: " + " ".join(f"{v:.9f}" for v in Tr) + "\n")
+    # camera poses T_cam = Tr T_lidar Tr^-1, T_lidar = (I, i * step)
+    rows = [np.hstack([np.eye(3), (R_tr @ (i * step))[:, None]]).reshape(-1)
+            for i in range(len(scans))]
+    gt = os.path.join(root, "poses", "00.txt")
+    np.savetxt(gt, np.asarray(rows))
+    return calib, gt
+
+
+def check_trajectory(path, n, what):
+    P = np.loadtxt(path)
+    if P.shape != (n, 12):
+        raise AssertionError(f"{what}: {path} has shape {P.shape}")
+    orth, _ = check_rel_rotations(P, what)
+    check_so3(P.reshape(-1, 3, 4)[:, :, :3], f"{what} absolute")
+    return orth
+
+
+def cli_on_kitti_tree(cfg, card, tmp):
+    """Phase 9: the command line on a KITTI tree of phase 5's scans.
+    Returns the launch counts of its commands."""
+    from caelo_tpu_torch.data import native_loader
+    from caelo_tpu_torch.models import weights_io
+
+    scans = make_scans(cfg)
+    root = os.path.join(tmp, "kitti")
+    calib, gt = write_kitti_tree(root, scans, np.array([1.2, 0.05, 0.0]))
+    lib = (native_loader._library_path() if native_loader.native_available()
+           else "not built, the numpy fallback reads the scans")
+    log(f"9 KITTI tree: {len(scans)} scans in {root}; native scan loader: "
+        f"{lib}")
+    rp, ep = weights_io.random_flax_params(0)
+    loaders = (weights_io.load_respond_layer_params,
+               weights_io.load_patch_encoder_params)
+    weights_io.load_respond_layer_params = lambda path=None: rp
+    weights_io.load_patch_encoder_params = lambda path=None: ep
+    log("9 the .h5 loaders answer random_flax_params(0) in this process "
+        "(the shipped weights are not in the repository)")
+    n = str(N_SCANS)
+    runs, art = os.path.join(tmp, "runs"), os.path.join(tmp, "artifacts")
+    launches = {"saliency_map": 0, "gather_planes": 0}
+    stage_ms, outs = {}, {}
+    try:
+        for argv in (["odometry", "--data", root, "--out", runs, "--frames", n],
+                     ["full", "--data", root, "--out",
+                      os.path.join(tmp, "full"), "--frames", n, "--no-loops"],
+                     ["preprocess", "--data", root, "--out", runs,
+                      "--artifacts", art, "--frames", n]):
+            reset_launches()
+            outs[argv[0]], stage_ms[argv[0]] = run_cli(argv, card)
+            used = launch_counts()
+            add_launches(launches, used)
+            log(f"9 {argv[0]}: launches {used}")
+            if (used["saliency_map"] < N_SCANS
+                    or used["gather_planes"] < 3 * N_SCANS):
+                raise AssertionError(f"cli {argv[0]} did not run K1 and K2 "
+                                     "on every frame")
+        p1 = os.path.join(runs, "poses_", "00.txt")
+        reset_launches()
+        _, stage_ms["refine"] = run_cli(
+            ["refine", "--poses", p1, "--artifacts", art], card)
+        _, stage_ms["loop"] = run_cli(
+            ["loop", "--poses", os.path.join(runs, "poses___", "00.txt"),
+             "--artifacts", art, "--min-gap", "10"], card)
+        p4 = os.path.join(runs, "poses____", "00.txt")
+        out, stage_ms["evaluate"] = run_cli(
+            ["evaluate", "--gt", gt, "--est", p4, "--calib", calib], card)
+        add_launches(launches, launch_counts())
+    finally:
+        (weights_io.load_respond_layer_params,
+         weights_io.load_patch_encoder_params) = loaders
+    ev = json.loads(out)
+    for k in ("rre_deg", "rte_m", "success_rate", "ate_rmse"):
+        if k not in ev:
+            raise AssertionError(f"evaluate printed no {k}")
+    full = json.loads(outs["full"].strip().splitlines()[-1])
+    if full["frames"] != N_SCANS:
+        raise AssertionError(f"cli full: {full}")
+    for d in (runs, os.path.join(tmp, "full")):
+        for name in ("poses_", "poses__", "poses___", "poses____"):
+            orth = check_trajectory(os.path.join(d, name, "00.txt"), N_SCANS,
+                                    f"{os.path.basename(d)}/{name}")
+            log(f"9 {os.path.basename(d)}/{name}: ({N_SCANS}, 12), finite, "
+                f"rel |R^T R - I| {orth:.2e}")
+    log(f"9 evaluate of poses____ against the ground truth: RRE "
+        f"{ev['rre_deg']:.4f} deg, RTE {ev['rte_m']:.4f} m, success "
+        f"{ev['success_rate']:.4f}, ATE rmse {ev['ate_rmse']:.4f} m")
+    log(f"9 command ms {({k: round(v, 1) for k, v in stage_ms.items()})}; "
+        f"{card}")
     return launches
 
 
@@ -701,26 +1031,22 @@ def main():
 
     # ---- 5. the slice
     torch.cuda.reset_peak_memory_stats()
-    keypoint_score.launches = 0
-    patches_from_planes.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     res_a, feats_a = run_odometry_windowed(
         scans, respond_net, encoder, cfg=cfg, window=WINDOW, seed=0,
         keep_features=True)
     torch.cuda.synchronize()
     t_a = time.perf_counter() - t0
-    launches = {"saliency_map": keypoint_score.launches,
-                "gather_planes": patches_from_planes.launches}
-    keypoint_score.launches = 0
-    patches_from_planes.launches = 0
+    launches = launch_counts()
+    reset_launches()
     t0 = time.perf_counter()
     res_b, feats_b = run_odometry_windowed(
         scans, respond_net, encoder, cfg=cfg_b, window=WINDOW, seed=0,
         keep_features=True)
     torch.cuda.synchronize()
     t_b = time.perf_counter() - t0
-    launches_b = {"saliency_map": keypoint_score.launches,
-                  "gather_planes": patches_from_planes.launches}
+    launches_b = launch_counts()
     log(f"run A (default config, K1 + K2): {t_a:.3f} s for {N_SCANS} scans, "
         f"launches {launches}; run B (indexing instead of K2): {t_b:.3f} s, "
         f"launches {launches_b}")
@@ -793,14 +1119,12 @@ def main():
     # ---- 6. refinement
     # 6a: the window with refinement features, both kernels
     torch.cuda.reset_peak_memory_stats()
-    keypoint_score.launches = 0
-    patches_from_planes.launches = 0
+    reset_launches()
     res_r, _, ref = run_odometry_windowed(
         scans, respond_net, encoder, cfg=cfg, window=WINDOW, seed=0,
         keep_refine_features=True)
     torch.cuda.synchronize()
-    launches_r = {"saliency_map": keypoint_score.launches,
-                  "gather_planes": patches_from_planes.launches}
+    launches_r = launch_counts()
     log(f"6a window with refinement features: launches {launches_r}")
     if (launches_r["saliency_map"] < N_SCANS
             or launches_r["gather_planes"] <= 0):
@@ -878,15 +1202,13 @@ def main():
 
     # 6d: the full pipeline through refinement, scan 8 unhealthy
     scans_thin = make_scans(cfg, thin=(8,))
-    keypoint_score.launches = 0
-    patches_from_planes.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     full = run_full_pipeline(scans_thin, respond_net, encoder, cfg=cfg)
     torch.cuda.synchronize()
     t_full = time.perf_counter() - t0
-    launches_f = {"saliency_map": keypoint_score.launches,
-                  "gather_planes": patches_from_planes.launches}
+    launches_f = launch_counts()
     for name in ("poses_raw", "poses_dejumped", "poses_refined",
                  "poses_final"):
         orth, det = check_rel_rotations(getattr(full, name), name)
@@ -912,6 +1234,11 @@ def main():
     for name in launches:
         launches[name] += (launches_r[name] + launches_f[name]
                            + launches_7[name])
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- 8. training at full width
+        add_launches(launches, training(cfg, dev, smi, tmp))
+        # ---- 9. the command line on a KITTI tree
+        add_launches(launches, cli_on_kitti_tree(cfg, smi, tmp))
 
     kernels = [
         {"name": "saliency_map", "route": "cuda",

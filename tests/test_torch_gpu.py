@@ -1,9 +1,10 @@
 """The port on a CUDA device: both CUDA kernels against their plain versions
 at the main path's shapes and at the edges (borders, odd widths, pixels
 with no occupied neighbour, all-masked keypoints, clamped slots), one
-frame's features and registration, the batched hybrid ICP and the burst map
-ICP, on the card against the CPU path.  Every test skips without a CUDA
-device.
+frame's features and registration, the batched hybrid ICP, the burst map
+ICP, a full-width train step of each auto-encoder and the patch trainer's
+data path, on the card against the CPU path; and ``cli selftest`` on the
+card.  Every test skips without a CUDA device.
 
 Imports torch and the port only, so the file also runs where JAX is absent
 (the repo's conftest imports JAX, hence ``--noconftest``):
@@ -327,3 +328,99 @@ def test_burst_map_icp_on_card_matches_cpu(cuda, rng):
     for k in (3, 4):
         np.testing.assert_allclose(gpu[k], cpu[k], atol=5e-4, rtol=0)
     assert abs(gpu[8] - cpu[8]) < 5e-4
+
+
+def _ae_case(which, rng):
+    """A full-width batch and the AE at ``random_ae_params(0)``: the respond
+    AE on 16 (3, 64, 1792) ring images at the coordinates' scale, the patch
+    AE on 256 (16, 16, 16) occupancy patches (the trainers' default
+    batches)."""
+    from caelo_tpu_torch.models import weights_io
+    from caelo_tpu_torch.models.patch_encoder import VoxelPatchAE
+    from caelo_tpu_torch.models.respond_net import SphericalRingAE
+    from caelo_tpu_torch.training.train import patch_loss, respond_loss
+
+    sph, vox = weights_io.random_ae_params(0)
+    if which == "respond":
+        model = SphericalRingAE()
+        model.load_state_dict(weights_io.spherical_ae_params_to_torch(sph))
+        batch = rng.normal(0, 20, (16, 3, 64, 1792)).astype(np.float32)
+        return model, torch.from_numpy(batch), respond_loss
+    model = VoxelPatchAE()
+    model.load_state_dict(weights_io.voxel_ae_params_to_torch(vox))
+    batch = (rng.uniform(size=(256, 16, 16, 16)) < 0.15).astype(np.float32)
+    return model, torch.from_numpy(batch), patch_loss
+
+
+@pytest.mark.parametrize("which", ["respond", "patch"])
+def test_train_step_full_width_on_card(cuda, rng, which):
+    """One Adam step of each AE at full width on the card, TF32 off: the
+    loss to rtol 1e-4 and every gradient to rtol 1e-3 / atol 1e-4 of its
+    parameter's largest against the CPU (the weight gradients sum up to
+    ~1.8 M products, in another order on cuDNN); the step moves every
+    parameter tensor and leaves it finite."""
+    from caelo_tpu_torch.training.train import (adam, create_train_state,
+                                                make_train_step)
+
+    model, batch, loss_fn = _ae_case(which, rng)
+    gpu = type(model)().to(cuda)
+    gpu.load_state_dict(model.state_dict())
+    loss_cpu = loss_fn(model, batch)
+    loss_cpu.backward()
+    loss_gpu = loss_fn(gpu, batch.to(cuda))
+    loss_gpu.backward()
+    torch.testing.assert_close(loss_gpu.detach().cpu(), loss_cpu.detach(),
+                               rtol=1e-4, atol=0)
+    for (name, p), q in zip(model.named_parameters(), gpu.parameters()):
+        scale = float(p.grad.abs().max())
+        torch.testing.assert_close(q.grad.cpu(), p.grad, rtol=1e-3,
+                                   atol=1e-4 * scale, msg=name)
+    before = {k: v.clone() for k, v in gpu.state_dict().items()}
+    state = create_train_state(gpu, adam(gpu.parameters()))
+    state, loss = make_train_step(loss_fn)(state, batch.to(cuda))
+    assert state.step == 1 and bool(torch.isfinite(loss))
+    for k, v in gpu.state_dict().items():
+        assert bool(torch.isfinite(v).all()), k
+        assert not torch.equal(v, before[k]), k
+
+
+def test_patch_batches_on_card_match_cpu(cuda):
+    """The patch trainer's data path on the card -- projection, respond
+    net, K1, voxelize, K2 at all three scales -- launches K1 once and K2
+    three times for one scan, and its first batch equals the CPU route's
+    (the plain versions), patch for patch, at the tiny config.  The scan is
+    test_frame_and_pair_on_card_match_cpu's, whose keypoints the card and
+    the CPU select alike (elsewhere a pixel whose saliency sits within
+    rounding of the gate's threshold may change the count of valid
+    keypoints, and with it every draw)."""
+    from caelo_tpu_torch.models.respond_net import RespondLayer
+    from caelo_tpu_torch.models.weights_io import respond_params_to_torch
+    from caelo_tpu_torch.training.drivers import patch_batches
+
+    cfg = tiny_test_config()
+    assert cfg.voxel.use_pallas_plane_gather
+    scan = _scan(cfg, 0.0)
+    batches = {}
+    for d in ("cpu", cuda):
+        net = RespondLayer()
+        net.load_state_dict(respond_params_to_torch(random_flax_params(0)[0]))
+        k1, k2 = keypoint_score.launches, patches_from_planes.launches
+        batches[d] = next(patch_batches(iter([scan]), cfg, 64,
+                                        respond_net=net, seed=0, device=d))
+        if d != "cpu":
+            assert keypoint_score.launches - k1 == 1
+            assert patches_from_planes.launches - k2 == 3
+    assert batches[cuda].is_cuda and float(batches["cpu"].sum()) > 0
+    assert torch.equal(batches[cuda].cpu(), batches["cpu"])
+
+
+def test_cli_selftest_on_card(cuda, capsys):
+    """``selftest`` at the default config and the default platform (the
+    card): registration within 1 deg / 0.5 m of the known motion."""
+    import json
+
+    from caelo_tpu_torch import cli
+
+    assert cli.main(["selftest"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["success"] and out["device"].startswith("cuda")

@@ -1,8 +1,10 @@
 """The port imports nothing of the JAX package and nothing of JAX, and its own
 copies of the JAX package's host modules agree with the originals: the
-config field by field (one listed exception), the synthetic and ray-cast
-generators bit for bit, the artifact store's on-disk layout both ways, and
-de-jump and batched refinement on a seeded input."""
+config field by field (one listed exception) and its four constructors, the
+synthetic and ray-cast generators bit for bit, the beam-angle fix, the
+calibration reader, the native loader's source, the scan-cache reader, the
+artifact store's on-disk layout both ways, and de-jump and batched
+refinement on a seeded input."""
 import ast
 import dataclasses
 import glob
@@ -15,12 +17,20 @@ import caelo_tpu.backend.refine as jrefine
 import caelo_tpu.config as jcfg
 import caelo_tpu.data.artifacts as jart
 import caelo_tpu.data.hard_synthetic as jhard
+import caelo_tpu.data.native_loader as jnative
+import caelo_tpu.data.scancache as jcache
 import caelo_tpu.data.synthetic as jsyn
+import caelo_tpu.geometry.kitti_pose as jkp
+import caelo_tpu.geometry.se3 as jse3
 import caelo_tpu_torch.backend.refine as trefine
 import caelo_tpu_torch.config as tcfg
 import caelo_tpu_torch.data.artifacts as tart
 import caelo_tpu_torch.data.hard_synthetic as thard
+import caelo_tpu_torch.data.native_loader as tnative
+import caelo_tpu_torch.data.scancache as tcache
 import caelo_tpu_torch.data.synthetic as tsyn
+import caelo_tpu_torch.geometry.kitti_pose as tkp
+import caelo_tpu_torch.geometry.se3 as tse3
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_FILES = sorted(
@@ -57,7 +67,10 @@ def test_port_file_imports_no_jax_package(path):
 
 def test_port_files_found():
     assert "chip_smoke.py" in PORT_FILES
-    assert os.path.join("caelo_tpu_torch", "config.py") in PORT_FILES
+    for f in ("config.py", "cli.py", "data/kitti.py", "data/native_loader.py",
+              "data/scancache.py", "training/train.py",
+              "training/drivers.py"):
+        assert os.path.join("caelo_tpu_torch", f) in PORT_FILES, f
     assert len(PORT_FILES) > 30
 
 
@@ -88,7 +101,8 @@ def test_config_defaults_match_jax(name):
 def test_config_values_and_properties_match_jax():
     """The default and tiny configs as nested dicts, and the derived shapes
     the pipeline reads, equal the JAX package's."""
-    for make in (lambda m: m.PipelineConfig(), lambda m: m.tiny_test_config()):
+    for make in (lambda m: m.PipelineConfig(), lambda m: m.tiny_test_config(),
+                 lambda m: m.small_test_config(), lambda m: m.ci_config()):
         t, j = make(tcfg), make(jcfg)
         dt, dj = dataclasses.asdict(t), dataclasses.asdict(j)
         assert (dt["voxel"].pop("use_pallas_plane_gather"),
@@ -116,6 +130,80 @@ def test_synthetic_generators_bit_equal():
         np.testing.assert_array_equal(wt, wj)
         np.testing.assert_array_equal(tsyn.range_filter(wt - 1.5, sensor),
                                       jsyn.range_filter(wj - 1.5, sensor))
+
+
+@pytest.mark.parametrize("beam_error_deg", [0.0, 0.3])
+def test_synthetic_scan_pair_bit_equal(beam_error_deg):
+    for make in (tcfg.tiny_test_config, tcfg.small_test_config):
+        cfg_t, cfg_j = make(), getattr(jcfg, make.__name__)()
+        got = tsyn.synthetic_scan_pair(2, cfg_t, beam_error_deg=beam_error_deg)
+        want = jsyn.synthetic_scan_pair(2, cfg_j, beam_error_deg=beam_error_deg)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_correct_beam_angle_np_bit_equal():
+    rng = np.random.default_rng(0)
+    pts = rng.uniform(-50, 50, (1000, 3)).astype(np.float32)
+    pts[:3, :2] = 0.0                       # on the z axis: left as they are
+    for deg in (0.22, -0.5):
+        got = tse3.correct_beam_angle_np(pts, deg)
+        np.testing.assert_array_equal(got, jse3.correct_beam_angle_np(pts, deg))
+        np.testing.assert_array_equal(got[:3], pts[:3])
+        assert not np.array_equal(got[3:], pts[3:])
+
+
+def test_load_calib_tr_and_rt_to_poses_match_jax(tmp_path):
+    """Both calib.txt formats (``key: values`` rows with a Tr row, and the
+    stripped numeric table whose 5th row is Tr); rt_to_poses on a batch."""
+    rng = np.random.default_rng(0)
+    rows = rng.normal(size=(5, 12))
+    raw = tmp_path / "calib.txt"
+    raw.write_text("".join(f"{k}: " + " ".join(f"{v:.12f}" for v in r) + "\n"
+                           for k, r in zip(("P0", "P1", "P2", "P3", "Tr"),
+                                           rows)))
+    stripped = tmp_path / "calib_.txt"
+    stripped.write_text("".join(" ".join(f"{v:.12f}" for v in r) + "\n\n"
+                                for r in rows))
+    for path in (raw, stripped):
+        got, want = tkp.load_calib_tr(str(path)), jkp.load_calib_tr(str(path))
+        for a, b in zip(got, want):
+            assert a.dtype == np.float64
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_allclose(got[0], rows[4].reshape(3, 4)[:, :3],
+                                   atol=1e-12)
+    R, t = rng.normal(size=(4, 3, 3)), rng.normal(size=(4, 3))
+    np.testing.assert_array_equal(tkp.rt_to_poses(R, t),
+                                  np.asarray(jkp.rt_to_poses(R, t)))
+
+
+def test_native_loader_source_is_a_copy():
+    for path in (tnative.SRC, jnative._SRC):
+        assert os.path.exists(path), path
+    with open(tnative.SRC, "rb") as a, open(jnative._SRC, "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_npy_scan_reader_matches_jax(tmp_path):
+    """Both readers return the same frames and masks from ``.npy`` stacks
+    (version 1.0 and 2.0 headers) and refuse an index out of range."""
+    rng = np.random.default_rng(0)
+    pts = rng.normal(size=(4, 50, 4)).astype(np.float32)
+    msk = rng.uniform(size=(4, 50)) < 0.7
+    for version in ((1, 0), (2, 0)):
+        base = str(tmp_path / f"seq{version[0]}")
+        for suffix, arr in ((".pts.npy", pts), (".msk.npy", msk)):
+            with open(base + suffix, "wb") as f:
+                np.lib.format.write_array(f, arr, version=version)
+        rt, rj = tcache.NpyScanReader(base), jcache.NpyScanReader(base)
+        assert len(rt) == len(rj) == 4
+        for i in (0, 3, -2):
+            for a, b, want in zip(rt[i], rj[i], (pts[i], msk[i])):
+                np.testing.assert_array_equal(a, b)
+                np.testing.assert_array_equal(a, want)
+        np.testing.assert_array_equal(rt.mask(2), rj.mask(2))
+        with pytest.raises(IndexError):
+            rt[4]
 
 
 def test_raycast_generators_bit_equal():

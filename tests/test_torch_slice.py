@@ -221,7 +221,11 @@ timer = StageTimer(sync=True)
 with timer.stage("solve"):
     optimize_host(R0, t0, g)
 assert timer.summary()["solve"]["count"] == 1
-bad =[m for m in sys.modules if m.split(".")[0] in ("jax", "flax")]
+import caelo_tpu_torch.cli
+import caelo_tpu_torch.data.kitti
+import caelo_tpu_torch.data.scancache
+import caelo_tpu_torch.training.drivers
+bad =[m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax")]
 assert not bad, bad
 print("ok")
 """
@@ -229,10 +233,11 @@ print("ok")
 
 def test_port_imports_no_jax():
     """A fresh interpreter imports the port, pipeline, burst rescue, loop
-    closure, pose graph, metrics, benchmark generator and stage timer
-    included, and runs one tiny frame, a tiny batched ICP, a scan context,
-    both pose-graph solves and a timed stage on the CPU without JAX or Flax
-    ever entering sys.modules."""
+    closure, pose graph, metrics, benchmark generator, stage timer, command
+    line, KITTI and scan-cache readers and trainers included, and runs one
+    tiny frame, a tiny batched ICP, a scan context, both pose-graph solves
+    and a timed stage on the CPU without JAX, Flax or optax ever entering
+    sys.modules."""
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", _HYGIENE], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
