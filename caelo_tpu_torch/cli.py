@@ -9,10 +9,11 @@ train, odometry, refine, loop closure, evaluate and the full stack.
 
 Every command runs on the CUDA device (``--platform cuda``, the default)
 and on the CPU only when asked (``--platform cpu``); without a CUDA device
-the default fails rather than fall back.  The keypoint baselines and
-external keypoints of ``odometry --keypoints``, ``scaling`` and ``bench``
-are not ported yet and raise, naming the slice of ``ROADMAP.md`` that
-brings them.
+the default fails rather than fall back.  ``odometry --keypoints`` runs
+every keypoint source: the CAE-LO window, the ISS / Harris3D / SIFT3D /
+random baselines and external keypoint trees.  ``scaling`` and ``bench``
+are not ported yet and raise, naming the part of ``ROADMAP.md`` that brings
+them.
 """
 from __future__ import annotations
 
@@ -84,25 +85,66 @@ def cmd_selftest(args):
     return 0 if out["success"] and ang < 1.0 and terr < 0.5 else 1
 
 
+def _external_feature_fn(args, encoder, device, cfg):
+    """``feature_fn`` of ``--keypoints external``: frame i's keypoints of
+    the external tree (``EvalOnReg_KeyPts.py:73-204`` / ``Dirs.py:35-41``)
+    with the file's descriptors, or described by the CAE-LO encoder where
+    the layout has none."""
+    import itertools
+
+    from .data.external import ExternalSequence
+    from .frontend.ablation import features_from_keypoints
+    from .frontend.registration import FrameFeatures
+
+    ext = ExternalSequence(args.external_dir, seq=args.seq,
+                           fmt=args.external_fmt,
+                           desc_dim=args.external_desc_dim,
+                           n_slots=cfg.keypoint.n_keypoints)
+    counter = itertools.count()
+    on = lambda a: torch.as_tensor(a).to(device).contiguous()
+
+    def feature_fn(pts, mask):
+        f = ext.features(next(counter))
+        if isinstance(f, FrameFeatures):
+            return FrameFeatures(*map(on, f))
+        kp, km = f                                   # keypoints only
+        return features_from_keypoints(encoder, on(pts), on(mask), on(kp),
+                                       on(km), cfg)
+    return feature_fn
+
+
 def cmd_odometry(args):
-    if args.keypoints != "cae-lo":
-        raise NotImplementedError(
-            f"odometry --keypoints {args.keypoints}: the keypoint baselines "
-            "and external keypoints are not ported yet (slice G of "
-            "ROADMAP.md)")
     device = _device(args)
     from .data.kitti import KittiOdometry, save_kitti_poses
-    from .frontend.odometry import run_odometry_windowed
+    from .frontend.odometry import run_odometry, run_odometry_windowed
 
+    if args.keypoints == "external" and not args.external_dir:
+        print("--keypoints external requires --external-dir",
+              file=sys.stderr)
+        return 2
     cfg = PipelineConfig()
     ds = KittiOdometry(args.data, cfg)
     respond, encoder = _reference_models(device, cfg, args.respond_weights,
                                          args.encoder_weights)
     R_tr, t_tr = ds.load_calib(args.seq)
     n = ds.n_frames(args.seq) if args.frames < 0 else args.frames
-    result, _ = run_odometry_windowed(
-        ds.iter_scans(args.seq, 0, n), respond, encoder, R_tr, t_tr, cfg,
-        window=min(64, n), progress=_progress(args.seq, n))
+    scans, progress = ds.iter_scans(args.seq, 0, n), _progress(args.seq, n)
+    if args.keypoints == "cae-lo":
+        result, _ = run_odometry_windowed(
+            scans, respond, encoder, R_tr, t_tr, cfg, window=min(64, n),
+            progress=progress)
+    else:
+        # frame by frame with another keypoint source (the JAX command's
+        # run_odometry(feature_fn=...), caelo_tpu/cli.py:96-143)
+        if args.keypoints == "external":
+            feature_fn = _external_feature_fn(args, encoder, device, cfg)
+        else:
+            from .frontend.ablation import make_ablation_feature_fn
+
+            feature_fn = make_ablation_feature_fn(args.keypoints, respond,
+                                                  encoder, cfg)
+        result = run_odometry(scans, respond, encoder, R_tr, t_tr, cfg,
+                              feature_fn=feature_fn, progress=progress)
     out = os.path.join(args.out, "poses_", f"{args.seq}.txt")
     save_kitti_poses(out, result.poses)
     np.savez(os.path.join(args.out, f"odom_{args.seq}.npz"),
@@ -290,8 +332,8 @@ def cmd_full(args):
 
 def cmd_scaling(args):
     raise NotImplementedError(
-        "scaling: the frames/s sweep over devices is not ported yet (slices "
-        "G and H of ROADMAP.md: eval/scaling.py and multi-GPU)")
+        "scaling: the frames/s sweep over devices is not ported yet (slice "
+        "H of ROADMAP.md: eval/scaling.py and multi-GPU)")
 
 
 def cmd_bench(args):
@@ -321,11 +363,13 @@ def main(argv=None):
     p.add_argument("--keypoints", default="cae-lo",
                    choices=["cae-lo", "iss", "harris", "sift", "random",
                             "external"],
-                   help="keypoint source; only cae-lo is ported, the "
-                        "others raise (slice G of ROADMAP.md)")
+                   help="keypoint source: the CAE-LO window (default), a "
+                        "baseline detector with CAE-LO descriptors, or "
+                        "external keypoint files")
     p.add_argument("--external-dir", default=None,
-                   help="external keypoint/descriptor files for --keypoints "
-                        "external (not ported yet)")
+                   help="external keypoint/descriptor tree "
+                        "(<dir>/<seq>/<frame:06d>.bin) for --keypoints "
+                        "external")
     p.add_argument("--external-fmt", default="3dfeatnet",
                    choices=["3dfeatnet", "xyzdesc", "usip"],
                    help="binary layout of the external files")

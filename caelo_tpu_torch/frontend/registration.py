@@ -74,6 +74,17 @@ def _extract(respond_net: RespondLayer, encoder: PatchEncoder,
     if with_refine:
         ref_feats = refinement_features(pts, mask, image, counter, key_pixels,
                                         key_mask, saliency, cfg)
+    descriptors = describe_keypoints(encoder, pts, mask, key_pts, key_mask,
+                                     cfg)
+    return FrameFeatures(key_pts, descriptors, key_mask, key_pixels), ref_feats
+
+
+def describe_keypoints(encoder: PatchEncoder, pts: torch.Tensor,
+                       mask: torch.Tensor, key_pts: torch.Tensor,
+                       key_mask: torch.Tensor, cfg: PipelineConfig):
+    """The 3-scale patch descriptors ``(K, 3 * code_dim)`` of ``key_pts`` in
+    the padded scan: voxel pyramid, bit-table patches (K2 at each scale),
+    encoder; zero where ``key_mask`` is false."""
     pyramid = voxelize(pts[:, :3], mask, cfg.voxel)
     patches = extract_patches(key_pts, key_mask, pyramid, cfg.voxel)
     # one encoder pass over all 3 scales stacked on the batch axis, in
@@ -87,8 +98,7 @@ def _extract(respond_net: RespondLayer, encoder: PatchEncoder,
         codes = encoder(stacked)
     descriptors = torch.cat([codes[i * K:(i + 1) * K]
                              for i in range(len(patches))], -1)
-    descriptors = torch.where(key_mask[:, None], descriptors, 0.0)
-    return FrameFeatures(key_pts, descriptors, key_mask, key_pixels), ref_feats
+    return torch.where(key_mask[:, None], descriptors, 0.0)
 
 
 def extract_frame_features(respond_net: RespondLayer, encoder: PatchEncoder,

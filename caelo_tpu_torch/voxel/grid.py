@@ -268,6 +268,59 @@ def _patches_one_scale_bitgrid(kv, key_mask, vox, vox_mask, cfg: VoxelConfig,
     return patches_from_planes_plain(*query)
 
 
+def decode_voxels(coords: torch.Tensor, scale: int,
+                  cfg: VoxelConfig = VoxelConfig()) -> torch.Tensor:
+    """Occupied-voxel coords (voxel-index space) -> world-space cell
+    centers, ``(M, 3)`` float32: the inverse of :func:`voxelize`'s binning
+    (the reference's ``RebuildPCFromVoxels`` family, ``Voxel.py:220-469``);
+    pair with the pyramid's mask to drop padding."""
+    f32 = dict(dtype=torch.float32, device=coords.device)
+    origin = torch.tensor(cfg.origin, **f32)
+    vs = torch.tensor(cfg.voxel_sizes[scale], **f32)
+    return (coords.to(torch.float32) + 0.5) * vs + origin
+
+
+def decode_patch(occ: torch.Tensor, key_pt: torch.Tensor, scale: int,
+                 cfg: VoxelConfig = VoxelConfig()):
+    """16^3 occupancy patch of ``key_pt`` at ``scale`` -> ``(P^3, 3)``
+    world-space centers of its cells and the ``(P^3,)`` occupancy mask
+    (the inverse of :func:`extract_patches` for one keypoint)."""
+    P = cfg.patch_size
+    kv = keypoint_voxels(key_pt[None], scale, cfg)[0]
+    r = torch.arange(P, dtype=torch.int32, device=occ.device) - cfg.patch_radius
+    cells = torch.stack(torch.meshgrid(r, r, r, indexing="ij"), -1)
+    return (decode_voxels(cells.reshape(-1, 3) + kv, scale, cfg),
+            occ.reshape(-1) > 0.5)
+
+
+def occupancy_stats(pyramid: VoxelPyramid,
+                    cfg: VoxelConfig = VoxelConfig()) -> dict:
+    """Saturation of the static patch-gather capacities, per scale
+    ``{"scale<s>": {...}}`` of Python ints:
+
+    * ``n_voxels`` -- unique occupied voxels (vs ``cfg.max_voxels``);
+    * ``n_supercells`` -- occupied 16-aligned supercells (vs
+      ``cfg.bitgrid_slots``: the bit table drops the ones beyond);
+    * ``max_supercell_occupancy`` -- the densest supercell's voxel count
+      (vs ``cfg.supercell_caps`` of the windowed route).
+    """
+    rows = []
+    for s in range(len(cfg.scale_ratios)):
+        vox, msk = pyramid.coords[s], pyramid.masks[s]
+        lin = torch.sort(torch.where(msk, _supercell_lin(vox, cfg, s),
+                                     _INT32_MAX)).values
+        is_first, _ = _first_of_run(lin)
+        # longest run of equal ids = the densest supercell
+        pos = torch.arange(lin.shape[0], device=lin.device)
+        start = torch.cummax(torch.where(is_first, pos, -1), 0).values
+        run_len = torch.where(lin != _INT32_MAX, pos - start + 1, 0)
+        rows.append(torch.stack([torch.as_tensor(pyramid.counts[s]).to(pos),
+                                 is_first.sum(), run_len.max()]))
+    return {f"scale{s}": dict(zip(("n_voxels", "n_supercells",
+                                   "max_supercell_occupancy"), r))
+            for s, r in enumerate(torch.stack(rows).tolist())}
+
+
 def extract_patches(key_pts: torch.Tensor, key_mask: torch.Tensor,
                     pyramid: VoxelPyramid, cfg: VoxelConfig = VoxelConfig()):
     """Multi-scale 16^3 occupancy patches around each keypoint: a tuple of

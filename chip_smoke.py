@@ -56,11 +56,24 @@ Phases (each raises on failure; the script then exits nonzero):
    the ``.h5`` loaders answering ``random_flax_params(0)`` (the files are
    not in the repository); every trajectory (17, 12), finite and on SO(3),
    K1 and K2 on every frame, and each command's time.  Logs whether the
-   native scan loader was built.
+   native scan loader was built;
+10. the keypoint baselines, external trees and voxel views at the default
+   config: (a) ISS, Harris3D and SIFT3D on frame 0 on the card against the
+   CPU (neighbour lists equal but for k-th-place ties; given the same
+   lists, keypoint sets equal but for counted threshold flips), each card
+   run's time split into KNN, eigen or scale space, and the rest, and its
+   peak memory; (b) ``odometry --keypoints`` for iss, harris, sift, random
+   and external (3DFeatNet and USIP trees written from phase 5's
+   features) on phase 9's tree, in process: every trajectory finite and on
+   SO(3), keypoints on every detector row, K2 three times per frame where
+   the CAE-LO encoder describes the keypoints (not in the 3DFeatNet row,
+   whose files carry descriptors), no K1; ms per frame, pair success, RRE,
+   RTE, ATE and peak memory per row; (c) ``decode_patch``,
+   ``occupancy_stats`` and ``export_voxels_ply`` on frame 0.
 
 Kernel launches are counted on the main path only (runs A, 6a, 6d, 7, the
-trainers and the window of phase 8, the commands of phase 9), each count
-set to 0 just before its run and read just after.  Prints a
+trainers and the window of phase 8, the commands of phases 9 and 10b), each
+count set to 0 just before its run and read just after.  Prints a
 ``{"kernels": [...]}`` JSON line, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Without a CUDA device
 it fails; it never falls back to the CPU.
@@ -819,6 +832,254 @@ def cli_on_kitti_tree(cfg, card, tmp):
     return launches
 
 
+def detectors_card_vs_cpu(cfg, dev, card, scans):
+    """Phase 10a: each baseline detector on frame 0 at full width on the
+    card against the same function on the CPU copy of its inputs.  The
+    neighbour lists must be equal but for ties at the k-th place
+    (``neighbor_ties``); given the same lists (the CPU's), the keypoint
+    sets must be equal but for flips at a decision threshold
+    (``explain_flips``).  With its own lists the card's keypoints are
+    logged against the CPU's, unchecked: a list that differs at a tie
+    changes that point's covariance, not by rounding.  Logs the card's
+    time split into KNN, eigen (or scale space) and the rest (NMS or
+    extremum test, and the top-k) and its peak memory."""
+    import torch
+    import caelo_tpu_torch.frontend.baselines as bl
+    from caelo_tpu_torch.eval.keypoint_flips import (explain_flips,
+                                                     neighbor_ties)
+
+    n_kp = cfg.keypoint.n_keypoints
+    pts_c = torch.from_numpy(np.ascontiguousarray(scans[0][0][:, :3]))
+    msk_c = torch.from_numpy(scans[0][1])
+    pts_g, msk_g = pts_c.to(dev), msk_c.to(dev)
+    t0 = time.perf_counter()
+    idx_c = bl._knn_neighbors(pts_c, msk_c, 64)
+    cpu_knn_s = time.perf_counter() - t0
+    idx_g = bl._knn_neighbors(pts_g, msk_g, 64).cpu()
+    n_tied = neighbor_ties(pts_c, msk_c, idx_c, idx_g)
+    log(f"10a frame 0: {int(msk_c.sum())} valid of {len(pts_c)} points; "
+        f"neighbour lists (k 64) on the card against the CPU: {n_tied} rows "
+        f"differ, each at a k-th-place tie; CPU KNN {cpu_knn_s:.1f} s")
+    knn = bl._knn_neighbors
+
+    @contextlib.contextmanager
+    def given_lists():
+        bl._knn_neighbors = lambda p, m, k, chunk=512: idx_c.to(p.device)
+        try:
+            yield
+        finally:
+            bl._knn_neighbors = knn
+
+    keys = lambda r: {tuple(p) for p in r.key_pts[r.key_mask].tolist()}
+    stages = {"_knn_neighbors": "knn", "_eigh": "eigen",
+              "_sift_scale_space": "scale space"}
+    for name, fn in (("iss", bl.iss_keypoints),
+                     ("harris", bl.harris3d_keypoints),
+                     ("sift", bl.sift3d_keypoints)):
+        fn(pts_g, msk_g, n_keypoints=n_kp)                       # warm
+        torch.cuda.reset_peak_memory_stats()
+        rec = {k: [] for k in stages}
+        restore = [count_calls(bl, k, rec[k]) for k in stages]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        try:
+            res_g = fn(pts_g, msk_g, n_keypoints=n_kp)
+        finally:
+            end.record()
+            torch.cuda.synchronize()
+            for r in restore:
+                r()
+        total = start.elapsed_time(end)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        split = {stages[k]: round(sum(ms for ms, _ in v), 3)
+                 for k, v in rec.items() if v}
+        split["nms and top-k"] = round(total - sum(split.values()), 3)
+        with given_lists():
+            t0 = time.perf_counter()
+            res_c = fn(pts_c, msk_c, n_keypoints=n_kp)
+            cpu_s = time.perf_counter() - t0
+            res_gc = fn(pts_g, msk_g, n_keypoints=n_kp)
+        got = explain_flips(name, pts_c, msk_c, res_c.key_pts, res_c.key_mask,
+                            res_gc.key_pts.cpu(), res_gc.key_mask.cpu(), n_kp,
+                            idx=idx_c)
+        own = len(keys(res_c) ^ keys(type(res_g)(*(x.cpu() for x in res_g))))
+        log(f"10a {name}: card {total:.3f} ms (split {split}; synchronised "
+            f"per stage), peak device memory {peak:.1f} MiB; CPU after the "
+            f"lists {cpu_s:.1f} s; given the CPU's lists: keypoints CPU "
+            f"{got['a']}, card {got['b']}, flips {got['flips']} "
+            f"({got['at_threshold']} at a threshold, {got['at_cut']} next "
+            f"to the cut); with the card's own lists {int(res_g.key_mask.sum())}"
+            f" keypoints, {own} differ from the CPU's; {card}")
+        if got["unexplained"] or abs(got["a"] - got["b"]) > got["flips"]:
+            raise AssertionError(f"{name}: card and CPU keypoints differ "
+                                 f"beyond threshold flips: {got}")
+
+
+def write_external_trees(root, feats):
+    """Phase 5's features as the reference's external trees: 3DFeatNet's
+    35-column files (xyz and the first 32 descriptor dimensions) and USIP's
+    keypoints-only files stored rotated by R90^T
+    (``examples/eval_matrix.py:68-91``)."""
+    from caelo_tpu_torch.data.external import R90
+
+    for fmt in ("3dfeatnet", "usip"):
+        os.makedirs(os.path.join(root, fmt, "00"))
+    for i in range(feats.mask.shape[0]):
+        m = feats.mask[i].cpu().numpy()
+        kp = feats.key_pts[i].cpu().numpy()[m]
+        desc = feats.descriptors[i].cpu().numpy()[m][:, :32]
+        np.concatenate([kp, desc], 1).astype(np.float32).tofile(
+            os.path.join(root, "3dfeatnet", "00", f"{i:06d}.bin"))
+        (R90.T @ kp.T).T.astype(np.float32).tofile(
+            os.path.join(root, "usip", "00", f"{i:06d}.bin"))
+
+
+def keypoint_rows(cfg, card, tmp, feats):
+    """Phase 10b: ``odometry --keypoints`` for every source but cae-lo on
+    phase 9's KITTI tree, in process, the ``.h5`` loaders answering
+    ``random_flax_params(0)``.  Checks every trajectory finite and on
+    SO(3), keypoints on every detector row, K2 three times per frame where
+    the CAE-LO encoder describes the keypoints (none in the 3DFeatNet row,
+    whose file holds the descriptors); logs ms per frame by CUDA events,
+    pair success, RRE, RTE and ATE against the ground truth and peak
+    memory.  Returns the rows' launch counts."""
+    import torch
+    import caelo_tpu_torch.frontend.ablation as abl
+    from caelo_tpu_torch.eval.metrics import (absolute_trajectory_error,
+                                              registration_summary,
+                                              relative_pose_errors)
+    from caelo_tpu_torch.geometry.kitti_pose import load_calib_tr
+    from caelo_tpu_torch.models import weights_io
+
+    root = os.path.join(tmp, "kitti")
+    calib = os.path.join(root, "sequences", "00", "calib.txt")
+    gt = np.loadtxt(os.path.join(root, "poses", "00.txt"))
+    R_tr, t_tr = load_calib_tr(calib)
+    ext = os.path.join(tmp, "external")
+    write_external_trees(ext, feats)
+    rp, ep = weights_io.random_flax_params(0)
+    loaders = (weights_io.load_respond_layer_params,
+               weights_io.load_patch_encoder_params)
+    weights_io.load_respond_layer_params = lambda path=None: rp
+    weights_io.load_patch_encoder_params = lambda path=None: ep
+    launches = {"saliency_map": 0, "gather_planes": 0}
+    n = N_SCANS
+    try:
+        for row in ("iss", "harris", "sift", "random", "ext-3dfeatnet",
+                    "ext-usip"):
+            out = os.path.join(tmp, "rows", row)
+            argv = ["odometry", "--data", root, "--out", out, "--frames",
+                    str(n)]
+            if row.startswith("ext-"):
+                argv += ["--keypoints", "external", "--external-dir",
+                         os.path.join(ext, row[4:]), "--external-fmt",
+                         row[4:]]
+            else:
+                argv += ["--keypoints", row]
+            described = []
+            restore = count_calls(abl, "features_from_keypoints", described)
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            try:
+                run_cli(argv, card)
+            finally:
+                end.record()
+                torch.cuda.synchronize()
+                restore()
+            ms = start.elapsed_time(end)
+            used = launch_counts()
+            add_launches(launches, used)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 20
+            n_kp = [int(f.mask.sum()) for _, f in described]
+            P = np.loadtxt(os.path.join(out, "poses_", "00.txt"))
+            orth = check_trajectory(os.path.join(out, "poses_", "00.txt"), n,
+                                    f"row {row}")
+            s = registration_summary(relative_pose_errors(gt, P, R_tr, t_tr))
+            ate = absolute_trajectory_error(gt, P)
+            succ = np.load(os.path.join(out, "odom_00.npz"))["successes"]
+            log(f"10b row {row}: {ms / n:.1f} ms per frame ({ms:.1f} ms for "
+                f"{n} frames, CUDA events), pair success "
+                f"{int(succ.sum())}/{n - 1}; against the ground truth: RRE "
+                f"{s['rre_deg']:.4f} deg, RTE {s['rte_m']:.4f} m, success "
+                f"{s['success_rate']:.4f}, ATE rmse {ate['ate_rmse']:.4f} m;"
+                f" keypoints per frame {n_kp or 'from the file'}; launches "
+                f"{used}; peak device memory {peak:.1f} MiB; rel |R^T R - I| "
+                f"{orth:.2e}; {card}")
+            want_k2 = 0 if row == "ext-3dfeatnet" else 3 * n
+            if used != {"saliency_map": 0, "gather_planes": want_k2}:
+                raise AssertionError(f"row {row}: launches {used}, want K2 "
+                                     f"{want_k2} and no K1")
+            if row in ("iss", "harris", "sift") and not sum(n_kp):
+                raise AssertionError(f"row {row}: no keypoints")
+    finally:
+        (weights_io.load_respond_layer_params,
+         weights_io.load_patch_encoder_params) = loaders
+    return launches
+
+
+def voxel_views(cfg, card, tmp, scans, feats):
+    """Phase 10c on frame 0: ``decode_patch`` of the first keypoint's patch
+    at each scale puts every occupied cell within half a voxel (per axis)
+    of a scan point; ``occupancy_stats``' supercells within
+    ``cfg.voxel.bitgrid_slots`` and its voxels, capped at ``max_voxels``,
+    those the pyramid keeps; ``export_voxels_ply`` writes one vertex per
+    kept voxel."""
+    import torch
+    from caelo_tpu_torch.eval.viz import export_voxels_ply
+    from caelo_tpu_torch.voxel.grid import (decode_patch, extract_patches,
+                                            occupancy_stats, voxelize)
+
+    vc = cfg.voxel
+    dev = feats.key_pts.device
+    pts = torch.from_numpy(scans[0][0]).to(dev)
+    msk = torch.from_numpy(scans[0][1]).to(dev)
+    valid = pts[msk, :3]
+    pyr = voxelize(pts[:, :3], msk, vc)
+    kp0, km0 = feats.key_pts[0], feats.mask[0]
+    patches = extract_patches(kp0, km0, pyr, vc)
+    stats = occupancy_stats(pyr, vc)
+    for s, vs in enumerate(vc.voxel_sizes):
+        # the first keypoint whose patch at this scale is occupied
+        full = torch.nonzero(km0 & patches[s].flatten(1).any(1))[:, 0]
+        if not len(full):
+            raise AssertionError(f"scale {s}: every patch of frame 0 is empty")
+        k = int(full[0])
+        centers, occ = decode_patch(patches[s][k], kp0[k], s, vc)
+        c = centers[occ]
+        # the scan point nearest each cell centre, by the largest axis gap
+        gap = torch.cat([(c[i:i + 256, None] - valid[None]).abs().amax(-1)
+                         .min(1).values for i in range(0, len(c), 256)])
+        st = stats[f"scale{s}"]
+        ply = export_voxels_ply(os.path.join(tmp, f"vox{s}.ply"), pyr, s, vc)
+        with open(ply) as f:
+            head = [next(f) for _ in range(7)]
+            n_lines = sum(1 for _ in f)
+        n_vox = int(pyr.masks[s].sum())
+        log(f"10c scale {s}: decode_patch of frame 0's keypoint {k}, "
+            f"{int(occ.sum())} occupied cells, farthest from a scan point "
+            f"{float(gap.max()):.4f} m by the largest axis (half a voxel "
+            f"{vs / 2:.3f} m); occupancy {st} against {vc.bitgrid_slots[s]} "
+            f"slots and {vc.max_voxels[s]} voxels; PLY {n_lines} vertices for "
+            f"{n_vox} voxels")
+        if float(gap.max()) > vs / 2 + 1e-4:
+            raise AssertionError(f"decode_patch scale {s}: a cell is not "
+                                 "within half a voxel of a scan point")
+        # n_voxels counts the unique voxels before the pyramid keeps
+        # max_voxels of them
+        if (st["n_supercells"] > vc.bitgrid_slots[s]
+                or min(st["n_voxels"], vc.max_voxels[s]) != n_vox):
+            raise AssertionError(f"occupancy_stats scale {s}: {st}")
+        if (f"element vertex {n_vox}\n" not in head[:3] or n_lines != n_vox):
+            raise AssertionError(f"export_voxels_ply scale {s}: {head[:3]}, "
+                                 f"{n_lines} vertex lines")
+
+
 def timed_ms(fn, reps):
     """Host wall-clock ms per call of ``fn``, synchronised, after one warm
     call; returns the list of times."""
@@ -1239,6 +1500,10 @@ def main():
         add_launches(launches, training(cfg, dev, smi, tmp))
         # ---- 9. the command line on a KITTI tree
         add_launches(launches, cli_on_kitti_tree(cfg, smi, tmp))
+        # ---- 10. the keypoint baselines, external trees, voxel views
+        detectors_card_vs_cpu(cfg, dev, smi, scans)
+        add_launches(launches, keypoint_rows(cfg, smi, tmp, feats_a))
+        voxel_views(cfg, smi, tmp, scans, feats_a)
 
     kernels = [
         {"name": "saliency_map", "route": "cuda",

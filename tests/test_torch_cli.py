@@ -4,7 +4,8 @@ fallback, the scan caches, ``run_odometry`` fed JAX's RANSAC draws, the
 generator input and ``progress`` of the drivers, the ``evaluate`` and
 ``refine`` commands on the same files, ``selftest`` and ``full`` on the CPU,
 the preprocess -> refine -> loop chain, and the commands that are not
-ported yet.
+ported yet (``scaling``, ``bench``).  ``odometry --keypoints`` with the
+other sources is in ``tests/test_torch_cli_keypoints.py``.
 
 Tolerances: scans, calibration, scan caches, ``evaluate``'s JSON and the
 de-jumped poses bit-equal; ``run_odometry`` with JAX's draws: the same
@@ -194,11 +195,12 @@ def params():
     return f32(rp), f32(ep)
 
 
-def _jax_sequential_samples(scans, rp, ep, cfg, seed):
+def _jax_sequential_samples(scans, rp, ep, cfg, seed, feature_fn=None):
     """The (H, S) draws JAX's run_odometry makes, per pair, for the plain
     pass and (where pass 1 fails) the motion-prior retry: the key split
     sequence of caelo_tpu/frontend/odometry.py:60-79 and the logits of
-    frontend/ransac.py:91-100, replayed with the same gate and fallback."""
+    frontend/ransac.py:91-100, replayed with the same gate and fallback,
+    on the features of ``feature_fn`` (default: CAE-LO's)."""
     from caelo_tpu.frontend.matching import match_descriptors as jmatch
 
     H, S = cfg.ransac.n_hypotheses, cfg.ransac.sample_size
@@ -219,8 +221,10 @@ def _jax_sequential_samples(scans, rp, ep, cfg, seed):
         logits = jnp.where(pm & (d <= cutoff), 0.0, -jnp.inf)
         return np.array(jax.random.categorical(key, logits, shape=(H, S)))
 
-    feats = [jreg.extract_frame_features(rp, ep, jnp.asarray(p),
-                                         jnp.asarray(m), cfg) for p, m in scans]
+    if feature_fn is None:
+        feature_fn = lambda p, m: jreg.extract_frame_features(
+            rp, ep, jnp.asarray(p), jnp.asarray(m), cfg)
+    feats = [feature_fn(p, m) for p, m in scans]
     s1 = np.zeros((n - 1, H, S), np.int64)
     s2 = np.zeros((n - 1, H, S), np.int64)
     retried = np.zeros(n - 1, bool)
@@ -419,9 +423,7 @@ def test_cli_stage_chain_on_cpu(kitti_tree, tmp_path, random_weights,
 
 
 @pytest.mark.parametrize("argv,slice_name", [
-    (["odometry", "--data", "x", "--keypoints", "iss"], "slice G"),
-    (["odometry", "--data", "x", "--keypoints", "external"], "slice G"),
-    (["scaling"], "slices G and H"),
+    (["scaling"], "slice H"),
     (["bench"], "benchmark PR"),
 ])
 def test_unported_commands_raise_naming_their_slice(argv, slice_name):

@@ -3,7 +3,8 @@ at the main path's shapes and at the edges (borders, odd widths, pixels
 with no occupied neighbour, all-masked keypoints, clamped slots), one
 frame's features and registration, the batched hybrid ICP, the burst map
 ICP, a full-width train step of each auto-encoder and the patch trainer's
-data path, on the card against the CPU path; and ``cli selftest`` on the
+data path, the keypoint baselines and ``features_from_keypoints`` (K2 at
+each scale), on the card against the CPU path; and ``cli selftest`` on the
 card.  Every test skips without a CUDA device.
 
 Imports torch and the port only, so the file also runs where JAX is absent
@@ -412,6 +413,94 @@ def test_patch_batches_on_card_match_cpu(cuda):
             assert patches_from_planes.launches - k2 == 3
     assert batches[cuda].is_cuda and float(batches["cpu"].sum()) > 0
     assert torch.equal(batches[cuda].cpu(), batches["cpu"])
+
+
+@pytest.mark.parametrize("name", ["iss", "harris", "sift"])
+def test_detectors_on_card_match_cpu(cuda, monkeypatch, name):
+    """Each baseline detector on the card against the CPU on the tiny
+    config's scan (3,005 of 4,096 points valid): neighbour lists equal but
+    for ties at the k-th place (``neighbor_ties``); given the CPU's lists,
+    keypoint sets equal but for flips at a decision threshold
+    (``explain_flips``), and keypoints found (128 / 17 / 82 on the CPU)."""
+    import caelo_tpu_torch.frontend.baselines as bl
+    from caelo_tpu_torch.eval.keypoint_flips import (explain_flips,
+                                                     neighbor_ties)
+
+    cfg = tiny_test_config()
+    n_kp = cfg.keypoint.n_keypoints
+    pts, mask = (torch.from_numpy(np.ascontiguousarray(a))
+                 for a in _scan(cfg, 0.0))
+    pts = pts[:, :3].contiguous()
+    idx = bl._knn_neighbors(pts, mask, 64)
+    neighbor_ties(pts, mask, idx,
+                  bl._knn_neighbors(pts.to(cuda), mask.to(cuda), 64))
+    monkeypatch.setattr(bl, "_knn_neighbors",
+                        lambda p, m, k, chunk=512: idx.to(p.device))
+    fn = {"iss": bl.iss_keypoints, "harris": bl.harris3d_keypoints,
+          "sift": bl.sift3d_keypoints}[name]
+    res_c = fn(pts, mask, n_keypoints=n_kp)
+    res_g = fn(pts.to(cuda), mask.to(cuda), n_keypoints=n_kp)
+    assert res_g.key_pts.is_cuda
+    got = explain_flips(name, pts, mask, res_c.key_pts, res_c.key_mask,
+                        res_g.key_pts.cpu(), res_g.key_mask.cpu(), n_kp,
+                        idx=idx)
+    assert got["unexplained"] == 0 and got["a"] > 0, got
+
+
+def test_random_keypoints_on_card(cuda):
+    """The card's draw takes valid points only; fed one draw, the card and
+    the CPU pick the same points."""
+    from caelo_tpu_torch.frontend.baselines import random_keypoints
+
+    pts, mask = (torch.from_numpy(np.ascontiguousarray(a))
+                 for a in _scan(tiny_test_config(), 0.0))
+    own = random_keypoints(torch.Generator(cuda).manual_seed(0),
+                           pts.to(cuda), mask.to(cuda), 256)
+    assert own.key_mask.all() and own.key_pts.is_cuda
+    draw = torch.nonzero(mask)[:, 0][::7][:256]
+    a = random_keypoints(None, pts.to(cuda), mask.to(cuda), 256, idx=draw)
+    b = random_keypoints(None, pts, mask, 256, idx=draw)
+    assert torch.equal(a.key_pts.cpu(), b.key_pts)
+
+
+def test_features_from_keypoints_on_card(cuda):
+    """``features_from_keypoints`` on the card launches K2 once per scale
+    and gives the same patches and descriptors as the plain gather
+    (``use_pallas_plane_gather=False``) on the card, and descriptors
+    within 1e-5 of the CPU's: the scan's first 128 points as keypoints,
+    every 8th masked."""
+    from caelo_tpu_torch.frontend.ablation import features_from_keypoints
+    from caelo_tpu_torch.voxel.grid import extract_patches, voxelize
+
+    cfg = tiny_test_config()
+    assert cfg.voxel.use_pallas_plane_gather
+    cfg_plain = dataclasses.replace(cfg, voxel=dataclasses.replace(
+        cfg.voxel, use_pallas_plane_gather=False))
+    pts, mask = (torch.from_numpy(np.ascontiguousarray(a))
+                 for a in _scan(cfg, 0.0))
+    kp, km = pts[:128, :3].contiguous(), torch.arange(128) % 8 > 0
+    nets = {d: build_models(*random_flax_params(0), d, cfg)
+            for d in ("cpu", cuda)}
+    k2 = patches_from_planes.launches
+    f_gpu = features_from_keypoints(nets[cuda][1], pts.to(cuda),
+                                    mask.to(cuda), kp.to(cuda), km.to(cuda),
+                                    cfg)
+    assert patches_from_planes.launches - k2 == 3
+    f_plain = features_from_keypoints(nets[cuda][1], pts.to(cuda),
+                                      mask.to(cuda), kp.to(cuda),
+                                      km.to(cuda), cfg_plain)
+    assert patches_from_planes.launches - k2 == 3
+    assert torch.equal(f_gpu.descriptors, f_plain.descriptors)
+    pyr = voxelize(pts[:, :3].to(cuda), mask.to(cuda), cfg.voxel)
+    for a, b in zip(extract_patches(kp.to(cuda), km.to(cuda), pyr, cfg.voxel),
+                    extract_patches(kp.to(cuda), km.to(cuda), pyr,
+                                    cfg_plain.voxel)):
+        assert torch.equal(a, b) and float(a.sum()) > 0
+    f_cpu = features_from_keypoints(nets["cpu"][1], pts, mask, kp, km, cfg)
+    torch.testing.assert_close(f_gpu.descriptors.cpu(), f_cpu.descriptors,
+                               rtol=1e-5, atol=1e-5)
+    assert f_gpu.key_pixels.dtype == torch.int32
+    assert not f_gpu.key_pixels.any()
 
 
 def test_cli_selftest_on_card(cuda, capsys):
