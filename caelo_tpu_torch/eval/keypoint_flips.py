@@ -16,7 +16,8 @@ intermediate values:
   may return any vector of that plane.
 
 :func:`neighbor_ties` holds two runs' neighbour lists to each other the
-same way: they may differ only among points tied at the k-th place.
+same way: they may differ only among points tied at the k-th place (the
+baselines' KNN, and the patch KNN of ``voxel/grid.py``).
 
 Distances are in units of the stated tolerance: ISS's ratios 1e-4 and its
 scores 1e-6 of the frame's largest eigenvalue (about twice a float32 eigen
@@ -45,26 +46,38 @@ def _nms(pts, mask, idx, score, radius):
 
 
 def neighbor_ties(pts: torch.Tensor, mask: torch.Tensor, idx_a: torch.Tensor,
-                  idx_b: torch.Tensor, rel: float = 1e-6) -> int:
+                  idx_b: torch.Tensor, rel: float = 1e-6,
+                  queries: torch.Tensor | None = None,
+                  query_mask: torch.Tensor | None = None) -> int:
     """The number of valid rows whose neighbour sets differ between two
     ``_knn_neighbors`` runs on ``pts (N, 3)``; raises unless every point
     ``j`` in one set of such a row ``i`` but not the other scores within
-    ``rel (|p_i|^2 + |p_j|^2)`` of the row's k-th score
+    ``rel (|q_i|^2 + |p_j|^2)`` of the row's k-th score
     (``_knn_neighbors``'s formula in float64, the k-th point taken from
     ``idx_a``).  The float32 formula rounds relative to those terms, not
     to the distance it leaves: at 100 m from the origin one unit in the
-    last place of ``|p|^2`` is 1e-3 m^2."""
+    last place of ``|p|^2`` is 1e-3 m^2.
+
+    The query of row ``i`` is ``q_i = p_i``, or ``queries[i]`` when given
+    (the patch KNN's keypoint voxels against the occupied voxels), the
+    rows then valid where ``query_mask`` is; with ``queries`` the lists
+    may come in any order and the k-th score is the lowest of ``idx_a``'s
+    row."""
     idx_a, idx_b, mask = idx_a.cpu(), idx_b.cpu(), mask.cpu()
-    differ = (idx_a.sort(1).values != idx_b.sort(1).values).any(1) & mask
-    rows = differ.nonzero()[:, 0].tolist()
     p = pts.detach().cpu().double()
+    q = p if queries is None else queries.detach().cpu().double()
+    rows_ok = mask if queries is None else query_mask.cpu()
+    differ = (idx_a.sort(1).values != idx_b.sort(1).values).any(1) & rows_ok
+    rows = differ.nonzero()[:, 0].tolist()
     p2 = (p * p).sum(1)
+    q2 = (q * q).sum(1)
     p2m = torch.where(mask, p2, 1e12)
     for i in rows:
-        score = 2.0 * (p @ p[i]) - p2m - p2[i]
-        kth = float(score[idx_a[i, -1]])
+        score = 2.0 * (p @ q[i]) - p2m - q2[i]
+        kth = float(score[idx_a[i, -1]] if queries is None
+                    else score[idx_a[i]].min())
         odd = set(idx_a[i].tolist()) ^ set(idx_b[i].tolist())
-        if any(abs(float(score[j]) - kth) > rel * float(p2[i] + p2[j])
+        if any(abs(float(score[j]) - kth) > rel * float(q2[i] + p2[j])
                for j in odd):
             raise AssertionError(f"neighbour row {i} differs beyond a tie "
                                  "at the k-th place")

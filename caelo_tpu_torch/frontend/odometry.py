@@ -8,6 +8,8 @@ the only sequential dependency -- is host float64.
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
 from typing import Callable, Iterable, List, Optional
 
 import numpy as np
@@ -136,14 +138,79 @@ def window_starts(n: int, window: int) -> list:
     return starts
 
 
+def staged_windows(scans, n: int, window: int, pin: bool = False,
+                   threaded: bool = True):
+    """Yield ``(start, stop, pts, msk)`` per window: frames ``start`` to
+    ``stop - 1`` of ``scans`` stacked into CPU tensors, pinned when ``pin``.
+
+    With ``threaded`` a producer thread stages the windows (the reads of a
+    disk-backed sequence and the stack) into a queue of at most two, so
+    staging overlaps the device work on the window before, as
+    ``caelo_tpu/frontend/odometry.py:211-263`` does.  An exception in the
+    producer is raised here, in the caller's thread; if the caller stops
+    early, the producer stops too.
+    """
+    def stage(start):
+        stop = min(start + window, n)
+        pts = torch.stack([torch.as_tensor(scans[i][0])
+                           for i in range(start, stop)])
+        msk = torch.stack([torch.as_tensor(scans[i][1])
+                           for i in range(start, stop)])
+        if pin:
+            pts, msk = pts.pin_memory(), msk.pin_memory()
+        return start, stop, pts, msk
+
+    starts = window_starts(n, window)
+    if not threaded:
+        for start in starts:
+            yield stage(start)
+        return
+
+    q: queue.Queue = queue.Queue(maxsize=2)
+    stopped = threading.Event()
+
+    def put(item):
+        while not stopped.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def producer():
+        try:
+            for start in starts:
+                if not put(stage(start)):
+                    return
+            put(None)
+        except BaseException as exc:       # raised again in the caller
+            put(exc)
+
+    th = threading.Thread(target=producer, name="window-staging",
+                          daemon=True)
+    th.start()
+    try:
+        while True:
+            item = q.get()
+            if item is None:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stopped.set()
+        th.join()
+
+
 def run_odometry_windowed(scans, respond_net, encoder, R_tr=None, t_tr=None,
                           cfg: PipelineConfig = PipelineConfig(),
                           window: int = 16, seed: int = 0,
                           keep_features: bool = False,
                           keep_refine_features: bool = False,
                           samples=None,
-                          progress: Optional[Callable[[int], None]] = None
-                          ) -> tuple:
+                          progress: Optional[Callable[[int], None]] = None,
+                          threaded_staging: bool = True) -> tuple:
     """Windowed frame-to-frame odometry over ``scans``, ``(pts (N, 4), mask
     (N,))`` numpy arrays or tensors.  An indexable sequence (a list, a
     ``data.scancache.NpyScanReader``) is read one window at a time; any
@@ -154,7 +221,11 @@ def run_odometry_windowed(scans, respond_net, encoder, R_tr=None, t_tr=None,
     Runs on the device of ``respond_net``'s parameters.  Each window is one
     call of the window processor; windows overlap by one frame.  Unlike the
     JAX version, the last window is not padded to ``window`` frames (eager
-    PyTorch needs no fixed shape), and windows are staged synchronously.
+    PyTorch needs no fixed shape).  As in JAX, a producer thread stages the
+    windows (``staged_windows``: reads and stack, pinned on a card, a queue
+    of two) while the device works; the copy to the card and every RANSAC
+    draw stay in the calling thread, so the results are those of
+    ``threaded_staging=False``, which stages each window when it is due.
 
     ``samples``, if given, is ``(pass1, pass2)``: ``(n-1, H, S)`` RANSAC pair
     indices per global pair for the plain pass and the motion-prior retry
@@ -190,12 +261,11 @@ def run_odometry_windowed(scans, respond_net, encoder, R_tr=None, t_tr=None,
     feat_windows: List = []
     ref_windows: List = []
 
-    for start in window_starts(n, window):
-        stop = min(start + window, n)
-        pts = torch.stack([torch.as_tensor(scans[i][0]) for i in
-                           range(start, stop)]).to(device)
-        msk = torch.stack([torch.as_tensor(scans[i][1]) for i in
-                           range(start, stop)]).to(device)
+    for start, stop, pts, msk in staged_windows(
+            scans, n, window, pin=device.type == "cuda",
+            threaded=threaded_staging):
+        pts = pts.to(device, non_blocking=True)
+        msk = msk.to(device, non_blocking=True)
         win_samples = None
         if samples is not None:
             win_samples = tuple(torch.as_tensor(s[start:stop - 1])

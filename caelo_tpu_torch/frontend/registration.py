@@ -2,18 +2,27 @@
 ``caelo_tpu/frontend/registration.py:35-188``).
 
   scan -> spherical ring -> respond net -> NMS top-k (K1) -> voxel pyramid
-  -> 3-scale bit-table patches (K2) -> encoder -> 60-dim descriptors ->
-  NN matching -> batched RANSAC -> refit pose; with the refinement
-  features (extended keypoints, planar points) from the same NMS run.
+  -> 3-scale patches (K2 on the bit-table route) -> encoder -> 60-dim
+  descriptors -> NN matching -> batched RANSAC -> refit pose; with the
+  refinement features (extended keypoints, planar points) from the same
+  NMS run.
 
 Registration is batched over leading axes of the features, so a window's
 consecutive pairs register in one call.
+
+``cfg.compute_dtype="bfloat16"`` runs the respond net and the encoder in
+bfloat16 as the JAX version does: a bfloat16 copy of each module's
+parameters and the network inputs cast to bfloat16, the respond map and the
+codes cast back to float32.  Keypoint selection (K1), the patches (K2) and
+everything after the encoder stay float32.
 """
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple
 
 import torch
+from torch.func import functional_call
 
 from ..backend.refine_runner import refinement_features
 from ..config import PipelineConfig
@@ -51,6 +60,37 @@ def stack_features(feats) -> FrameFeatures:
     return FrameFeatures(*(torch.stack(xs) for xs in zip(*feats)))
 
 
+# module -> (signature of its float32 parameters, their bfloat16 copies)
+_LOW_PRECISION = weakref.WeakKeyDictionary()
+
+
+def _low_precision_params(module: torch.nn.Module, dtype: torch.dtype):
+    """``dtype`` copies of ``module``'s parameters, made once per module and
+    made again when a parameter changes (moved, replaced, or written in
+    place: a state-dict load or an optimiser step bumps its version), so
+    the caller's module itself is never cast."""
+    sig = (dtype,) + tuple((p.data_ptr(), p.device, p._version)
+                           for p in module.parameters())
+    hit = _LOW_PRECISION.get(module)
+    if hit is None or hit[0] != sig:
+        hit = (sig, {k: p.detach().to(dtype)
+                     for k, p in module.named_parameters()})
+        _LOW_PRECISION[module] = hit
+    return hit[1]
+
+
+def run_in(module: torch.nn.Module, x: torch.Tensor,
+           dtype: torch.dtype) -> torch.Tensor:
+    """``module(x)`` in ``dtype``: as it is for float32; otherwise its
+    parameters' ``dtype`` copies and ``x`` cast to ``dtype`` through
+    ``functional_call``, the output cast back to float32 (JAX's explicit
+    casts, not autocast's per-op policy)."""
+    if dtype == torch.float32:
+        return module(x)
+    return functional_call(module, _low_precision_params(module, dtype),
+                           (x.to(dtype),)).to(torch.float32)
+
+
 @torch.no_grad()
 def _extract(respond_net: RespondLayer, encoder: PatchEncoder,
              pts: torch.Tensor, mask: torch.Tensor, cfg: PipelineConfig,
@@ -59,15 +99,16 @@ def _extract(respond_net: RespondLayer, encoder: PatchEncoder,
     (``with_refine``) the refinement features from the same projection,
     respond map and NMS run (``caelo_tpu/frontend/registration.py:55-109``).
     """
-    if cfg.compute_dtype != "float32":
-        raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: only float32 "
-                         "is ported")
     if (encoder.activation, encoder.code_activation) != (
             cfg.encoder_activation, cfg.encoder_code_activation):
         raise ValueError("encoder activations differ from the config's")
+    # any compute_dtype but "bfloat16" is float32, as in the JAX version
+    dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
+             else torch.float32)
     image, counter = project_to_spherical_ring(pts, mask, cfg.sensor)
     net_in = model_input(image, cfg.sensor).permute(2, 0, 1)[None]
-    planes = respond_net(net_in)[0]                    # (8, H, W) NCHW planes
+    # (8, H, W) NCHW planes, float32 whatever the net ran in: K1 reads them
+    planes = run_in(respond_net, net_in, dtype)[0]
     key_pts, key_pixels, key_mask, saliency = select_keypoints_planes(
         image, counter, planes, cfg.sensor, cfg.keypoint)
     ref_feats = None
@@ -75,16 +116,18 @@ def _extract(respond_net: RespondLayer, encoder: PatchEncoder,
         ref_feats = refinement_features(pts, mask, image, counter, key_pixels,
                                         key_mask, saliency, cfg)
     descriptors = describe_keypoints(encoder, pts, mask, key_pts, key_mask,
-                                     cfg)
+                                     cfg, dtype)
     return FrameFeatures(key_pts, descriptors, key_mask, key_pixels), ref_feats
 
 
 def describe_keypoints(encoder: PatchEncoder, pts: torch.Tensor,
                        mask: torch.Tensor, key_pts: torch.Tensor,
-                       key_mask: torch.Tensor, cfg: PipelineConfig):
-    """The 3-scale patch descriptors ``(K, 3 * code_dim)`` of ``key_pts`` in
-    the padded scan: voxel pyramid, bit-table patches (K2 at each scale),
-    encoder; zero where ``key_mask`` is false."""
+                       key_mask: torch.Tensor, cfg: PipelineConfig,
+                       dtype: torch.dtype = torch.float32):
+    """The 3-scale patch descriptors ``(K, 3 * code_dim)`` float32 of
+    ``key_pts`` in the padded scan: voxel pyramid, patches (K2 at each
+    bit-table scale), encoder in ``dtype``; zero where ``key_mask`` is
+    false."""
     pyramid = voxelize(pts[:, :3], mask, cfg.voxel)
     patches = extract_patches(key_pts, key_mask, pyramid, cfg.voxel)
     # one encoder pass over all 3 scales stacked on the batch axis, in
@@ -93,9 +136,10 @@ def describe_keypoints(encoder: PatchEncoder, pts: torch.Tensor,
     stacked = torch.cat(patches, 0)
     ck = cfg.encoder_chunk
     if ck and stacked.shape[0] > ck and stacked.shape[0] % ck == 0:
-        codes = torch.cat([encoder(c) for c in stacked.split(ck)])
+        codes = torch.cat([run_in(encoder, c, dtype)
+                           for c in stacked.split(ck)])
     else:
-        codes = encoder(stacked)
+        codes = run_in(encoder, stacked, dtype)
     descriptors = torch.cat([codes[i * K:(i + 1) * K]
                              for i in range(len(patches))], -1)
     return torch.where(key_mask[:, None], descriptors, 0.0)
@@ -108,9 +152,11 @@ def extract_frame_features(respond_net: RespondLayer, encoder: PatchEncoder,
     """Full per-frame front end: padded scan ``(N, 4)`` + mask ``(N,)`` ->
     keypoints + descriptors, on the device of ``pts``.
 
-    ``encoder`` must carry ``cfg``'s activation names.  Only
-    ``compute_dtype='float32'`` is ported; on a card, call
-    ``caelo_tpu_torch.setup_device`` first so the convs run in full float32
+    ``encoder`` must carry ``cfg``'s activation names.  With
+    ``cfg.compute_dtype="bfloat16"`` both networks run in bfloat16 on
+    copies of their parameters (the modules are not changed) and the
+    features stay float32.  On a card, call ``caelo_tpu_torch.setup_device``
+    first so the float32 convs run in full float32, not TF32
     (``run_odometry_windowed`` does).
     """
     return _extract(respond_net, encoder, pts, mask, cfg, False)[0]

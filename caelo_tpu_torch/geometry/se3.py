@@ -1,12 +1,13 @@
 """Batched rigid-transform algebra and the Horn rigid solve in PyTorch.
 
-Port of the parts of ``caelo_tpu/geometry/se3.py`` that the front-end
-window, the ICP refinement, the burst rescue and the pose graph run.  The
-3x3 algebra is broadcast products and sums, full float32 whatever the TF32
-settings.  Shapes are polymorphic over leading
+Port of ``caelo_tpu/geometry/se3.py``: the transform algebra, the Euler,
+quaternion and angle-axis converters, the Horn solve, the Lie maps and
+the beam-angle fix.  The 3x3 algebra is broadcast products and sums, full
+float32 whatever the TF32 settings.  Shapes are polymorphic over leading
 batch dimensions, as in the JAX module.  A transform is ``(R, t)``,
 ``(..., 3, 3)`` and ``(..., 3)``, mapping ``x -> R x + t``.  The scan
-loaders' beam-angle fix, ``correct_beam_angle_np``, is host numpy.
+loaders' beam-angle fix, ``correct_beam_angle_np``, is host numpy;
+``correct_beam_angle`` is its tensor twin.
 """
 from __future__ import annotations
 
@@ -77,6 +78,22 @@ def rotmat_to_euler_xyz_deg(R: torch.Tensor) -> torch.Tensor:
     return torch.stack([ax, ay, az], -1) * RADIAN2DEGREE
 
 
+def euler_xyz_to_rotmat(angles_rad: torch.Tensor) -> torch.Tensor:
+    """Rotation ``R = Rz @ Ry @ Rx`` from XYZ Euler angles ``(..., 3)`` in
+    radians (reference ``EulerAngle2RotateMat`` with sequence 'xyz',
+    ``Transformations.py:188-211``)."""
+    ax, ay, az = angles_rad.unbind(-1)
+    cx, sx = torch.cos(ax), torch.sin(ax)
+    cy, sy = torch.cos(ay), torch.sin(ay)
+    cz, sz = torch.cos(az), torch.sin(az)
+    one, zero = torch.ones_like(ax), torch.zeros_like(ax)
+    mat = lambda rows: torch.stack([torch.stack(r, -1) for r in rows], -2)
+    Rx = mat([[one, zero, zero], [zero, cx, -sx], [zero, sx, cx]])
+    Ry = mat([[cy, zero, sy], [zero, one, zero], [-sy, zero, cy]])
+    Rz = mat([[cz, -sz, zero], [sz, cz, zero], [zero, zero, one]])
+    return matmul3(matmul3(Rz, Ry), Rx)
+
+
 def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     """Unit quaternion ``(..., 4)`` (w, x, y, z) -> rotation ``(..., 3, 3)``."""
     w, x, y, z = q.unbind(-1)
@@ -86,6 +103,58 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
         [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)],
     ]
     return torch.stack([torch.stack(r, -1) for r in rows], -2)
+
+
+def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation ``(..., 3, 3)`` -> unit quaternion ``(..., 4)`` (w, x, y, z)
+    with ``w >= 0``: the eigenvector of the largest eigenvalue of
+    Bar-Itzhack's symmetric 4x4 K matrix (reference ``RotMat2Quatern``,
+    ``Transformations.py:213-239``), by the batched Jacobi solver."""
+    q = max_eigvec_sym4x4(_bar_itzhack_K(R))
+    # K stores (x, y, z, w) with the vector part conjugated relative to
+    # quat_to_rotmat's convention
+    q = torch.cat([q[..., 3:4], -q[..., 0:3]], -1)
+    return q * torch.where(q[..., 0:1] < 0, -1.0, 1.0)
+
+
+def _bar_itzhack_K(R: torch.Tensor) -> torch.Tensor:
+    """Bar-Itzhack's symmetric 4x4 matrix of a rotation, ``(..., 4, 4)``."""
+    t = 1.0 / 3.0
+    r = lambda i, j: R[..., i, j]
+    k01 = t * (r(1, 0) + r(0, 1))
+    k02 = t * (r(2, 0) + r(0, 2))
+    k03 = t * (r(1, 2) - r(2, 1))
+    k12 = t * (r(2, 1) + r(1, 2))
+    k13 = t * (r(2, 0) - r(0, 2))
+    k23 = t * (r(0, 1) - r(1, 0))
+    rows = [
+        [t * (r(0, 0) - r(1, 1) - r(2, 2)), k01, k02, k03],
+        [k01, t * (r(1, 1) - r(0, 0) - r(2, 2)), k12, k13],
+        [k02, k12, t * (r(2, 2) - r(0, 0) - r(1, 1)), k23],
+        [k03, k13, k23, t * (r(0, 0) + r(1, 1) + r(2, 2))],
+    ]
+    return torch.stack([torch.stack(row, -1) for row in rows], -2)
+
+
+def angle_axis_to_quat(angle: torch.Tensor,
+                       axis: torch.Tensor) -> torch.Tensor:
+    """``(angle (...), unit axis (..., 3))`` -> quaternion ``(..., 4)`` (w,
+    x, y, z) (reference ``AngleAxis2Quatern``, ``Transformations.py:
+    264-272``)."""
+    half = angle / 2.0
+    return torch.cat([torch.cos(half)[..., None],
+                      axis * torch.sin(half)[..., None]], -1)
+
+
+def quat_to_angle_axis(q: torch.Tensor):
+    """Quaternion ``(..., 4)`` -> ``(angle (...), axis (..., 3))``; the axis
+    is zero where the rotation is the identity (reference
+    ``Quatern2AngleAndAxis``, ``Transformations.py:254-262``)."""
+    half = torch.arccos(torch.clamp(q[..., 0], -1.0, 1.0))
+    s = torch.sin(half)
+    tiny = (s.abs() < 1e-12)[..., None]
+    axis = q[..., 1:4] / torch.where(tiny, 1.0, s[..., None])
+    return 2.0 * half, torch.where(tiny, 0.0, axis)
 
 
 def max_eigvec_sym4x4_lanes(A: torch.Tensor, sweeps: int = 8) -> torch.Tensor:
@@ -225,6 +294,21 @@ def rotation_geodesic_deg(R0: torch.Tensor, R1: torch.Tensor) -> torch.Tensor:
     tr = Rrel[..., 0, 0] + Rrel[..., 1, 1] + Rrel[..., 2, 2]
     c = torch.clamp((tr - 1.0) / 2.0, -1.0, 1.0)
     return torch.arccos(c) * RADIAN2DEGREE
+
+
+def correct_beam_angle(pts: torch.Tensor,
+                       angle_deg: float = 0.22) -> torch.Tensor:
+    """Velodyne beam-angle intrinsic correction on the device: rotate each
+    point of ``pts (N, 3)`` by ``angle_deg`` about the axis ``p x z``
+    (reference ``CorrectPC``, ``Transformations.py:28-39``), Rodrigues on
+    the per-point axis.  A point on the z axis has no rotation axis and is
+    left as it is."""
+    z = torch.tensor([0.0, 0.0, 1.0], dtype=pts.dtype, device=pts.device)
+    axis = torch.linalg.cross(pts, z.expand_as(pts))
+    n = torch.linalg.vector_norm(axis, dim=-1, keepdim=True)
+    axis = axis / torch.where(n < 1e-12, 1.0, n)
+    out = _rotate(exp_so3(axis * math.radians(angle_deg)), pts)
+    return torch.where(n < 1e-12, pts, out)
 
 
 def correct_beam_angle_np(pts, angle_deg: float = 0.22):

@@ -87,3 +87,24 @@ class VoxelPatchAE(nn.Module):
         h = a(self.conv2_2(h))
         h = F.interpolate(h, scale_factor=2, mode="nearest")
         return self.out(h)[:, 0]
+
+
+@torch.no_grad()
+def describe(encoder, patches3, batch_chunk: int | None = None):
+    """The per-scale codes of ``encoder`` concatenated into the 3-scale
+    descriptor ``(K, 3 * code_dim)`` (``GetFeaturesFromPatches``,
+    ``Match.py:130-135``).
+
+    Args:
+      encoder: a ``PatchEncoder`` (or any callable on a patch batch).
+      patches3: three ``(K, 16, 16, 16)`` patch tensors.
+      batch_chunk: if given, each scale is encoded ``batch_chunk`` patches
+        at a time, bounding the conv activations (the JAX function takes
+        the argument and encodes each scale in one call).
+    """
+    def codes(p):
+        if not batch_chunk:
+            return encoder(p)
+        return torch.cat([encoder(c) for c in p.split(batch_chunk)])
+
+    return torch.cat([codes(p) for p in patches3], -1)

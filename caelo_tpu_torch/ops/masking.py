@@ -38,3 +38,35 @@ def compact(data: torch.Tensor, mask: torch.Tensor, size: int, fill=0):
     out_mask = torch.zeros(size + 1, dtype=torch.bool, device=data.device)
     out_mask[dest] = mask
     return out[:size], out_mask[:size], mask.sum(dtype=torch.int32)
+
+
+def dedup_int_rows(rows: torch.Tensor, mask: torch.Tensor, size: int,
+                   n_keys: int | None = None):
+    """Deduplicate integer rows (e.g. voxel coordinates) into a fixed-size
+    buffer.
+
+    Rows are sorted lexicographically by their first ``n_keys`` columns
+    (default: all), stably, as ``lax.sort(num_keys=...)`` sorts them:
+    one stable sort per key column, last key first.  Invalid rows become
+    INT32_MAX in every column and sort to the end.  A row is kept where it
+    differs from its predecessor in any column.
+
+    Args:
+      rows: ``(N, K)`` int32, nonnegative entries for valid rows.
+      mask: ``(N,)`` bool validity.
+      size: output capacity.
+
+    Returns ``(out_rows, out_mask, count)``; ``count`` is the number of
+    unique valid rows (it may exceed ``size``: the excess is dropped).
+    """
+    N, K = rows.shape
+    n_keys = K if n_keys is None else n_keys
+    big = torch.iinfo(torch.int32).max
+    keyed = torch.where(mask[:, None], rows, big)
+    order = torch.arange(N, device=rows.device)
+    for c in reversed(range(n_keys)):
+        order = order[torch.sort(keyed[order, c], stable=True).indices]
+    srows = keyed[order]
+    first = torch.ones(N, dtype=torch.bool, device=rows.device)
+    first[1:] = (srows[1:] != srows[:-1]).any(1)
+    return compact(srows, first & (srows[:, 0] < big), size, fill=0)

@@ -1,17 +1,26 @@
-"""Three-scale voxel pyramid and the bit-table patch query (port of
+"""Three-scale voxel pyramid and the patch queries (port of
 ``caelo_tpu/voxel/grid.py``).
 
 * :func:`voxelize`: per scale, one sort of a packed (16-aligned supercell
   id, 4-bit local coords) key, dedup and compaction -> padded occupied-voxel
   lists in supercell order.
-* :func:`extract_patches`: per scale, a bit table of 16 z-bits per
-  (supercell, x, y) column, the 2x2x2 covering supercells' table slots per
-  keypoint, then the word planes gathered, aligned and unpacked into a 16^3
-  patch (kernel K2, ``ops/plane_gather.py``, behind
-  ``use_pallas_plane_gather``, the port's default).
+* :func:`extract_patches`: a 16^3 occupancy patch per keypoint and scale,
+  by one of three routes, dispatched as the JAX function dispatches them:
 
-Only the bit-table route is ported: the default ``bitgrid_slots`` sends all
-three scales there, so the knn and window patch paths are never reached.
+  - ``patch_method="window"`` and ``bitgrid_slots[s] > 0`` (the default at
+    every scale): a bit table of 16 z-bits per (supercell, x, y) column,
+    the 2x2x2 covering supercells' table slots per keypoint, then the word
+    planes gathered, aligned and unpacked into the patch (kernel K2,
+    ``ops/plane_gather.py``, behind ``use_pallas_plane_gather``, the
+    port's default);
+  - ``patch_method="window"`` and ``bitgrid_slots[s] == 0``: a supercell
+    range query, the candidates of the 8 covering supercells' runs under
+    ``supercell_caps`` scattered into the patch;
+  - any other ``patch_method``: the KNN route, a float32 distance matmul,
+    the ``patch_knn`` nearest voxels and a box filter.
+
+  ``presorted_pyramid=False`` makes the bit-table and window routes sort
+  the voxel list themselves instead of taking ``voxelize``'s order.
 """
 from __future__ import annotations
 
@@ -208,12 +217,12 @@ def bitgrid_query(kv, key_mask, vox, vox_mask, cfg: VoxelConfig,
     keypoint's covering supercells, and the ``(K, 3)`` int32 offset of its
     patch window in the first of them.
 
-    ``kv (K, 3)`` int32 keypoint voxels; ``vox (M, 3)`` the presorted
-    occupied-voxel list.
+    ``kv (K, 3)`` int32 keypoint voxels; ``vox (M, 3)`` the occupied-voxel
+    list, in ``voxelize``'s supercell order unless
+    ``cfg.presorted_pyramid`` is false: then the slot assignment sorts the
+    supercell ids and each voxel finds its slot through the lookup
+    (``caelo_tpu/voxel/grid.py:388, 469-479``).
     """
-    if not cfg.presorted_pyramid:
-        raise ValueError("the bit-table build takes voxelize()'s presorted "
-                         "pyramid (presorted_pyramid=True)")
     P = cfg.patch_size
     R = cfg.patch_radius
     pbits = P.bit_length() - 1
@@ -225,8 +234,8 @@ def bitgrid_query(kv, key_mask, vox, vox_mask, cfg: VoxelConfig,
     sgx, sgy, sgz = _supercell_grid(cfg, scale)
     dev = kv.device
 
-    lin_sorted = torch.where(vox_mask, _supercell_lin(vox, cfg, scale),
-                             _INT32_MAX)
+    lin = torch.where(vox_mask, _supercell_lin(vox, cfg, scale), _INT32_MAX)
+    lin_sorted = lin if cfg.presorted_pyramid else torch.sort(lin).values
     is_first, slot_of_sorted = _first_of_run(lin_sorted)
     lookup = _slot_lookup(lin_sorted, is_first, slot_of_sorted,
                           sgx * sgy * sgz, slots)
@@ -234,8 +243,16 @@ def bitgrid_query(kv, key_mask, vox, vox_mask, cfg: VoxelConfig,
     # build: word = slot*P*P + lx*P + ly, bit = lz.  One buffer holds the
     # table, the zero plane (row `slots`) and a final drop word, so table2
     # is a view, not an 84 MB concatenation as in the JAX version.
-    scatter_idx, bits = bitgrid_scatter_plan(vox, vox_mask, cfg, scale, slots)
     n_tab = slots * P * P
+    if cfg.presorted_pyramid:
+        scatter_idx, bits = bitgrid_scatter_plan(vox, vox_mask, cfg, scale,
+                                                 slots)
+    else:
+        word_idx = (lookup(lin, vox_mask) * (P * P) + (vox[:, 0] & pmask) * P
+                    + (vox[:, 1] & pmask))
+        bits = torch.where(vox_mask, 1 << (vox[:, 2] & pmask), 0
+                           ).to(torch.int32)
+        scatter_idx = torch.where(word_idx < n_tab, word_idx, n_tab)
     buf = torch.zeros(n_tab + P * P + 1, dtype=torch.int32, device=dev)
     buf.index_add_(0, torch.where(scatter_idx == n_tab, n_tab + P * P,
                                   scatter_idx).long(), bits)
@@ -266,6 +283,140 @@ def _patches_one_scale_bitgrid(kv, key_mask, vox, vox_mask, cfg: VoxelConfig,
         # in one launch
         return patches_from_planes(*query)
     return patches_from_planes_plain(*query)
+
+
+def _patches_one_scale_window(kv, key_mask, vox, vox_mask, cfg: VoxelConfig,
+                              scale: int):
+    """16^3 occupancy patches of one scale by supercell range queries
+    (``caelo_tpu/voxel/grid.py:199-311``): ``(K, P, P, P)`` float32.
+
+    The voxels sorted by supercell id (``voxelize``'s order, or a stable
+    sort of it when ``presorted_pyramid`` is false: which candidates a cap
+    keeps depends on the order within a run), a keypoint's window overlaps
+    at most 2x2x2 supercells, whose runs a binary search finds.  Up to
+    ``supercell_caps[scale]`` voxels of each run are candidates, and the
+    candidates inside the window are scattered into the patch.  Keypoints
+    go ``patch_query_chunk`` at a time when that divides K, as in JAX,
+    bounding the ``(k, 8, C)`` candidate tensors.  Integer work throughout:
+    the result is JAX's bit for bit.
+    """
+    K = kv.shape[0]
+    P = cfg.patch_size
+    R = cfg.patch_radius
+    M = vox.shape[0]
+    C = min(cfg.supercell_caps[scale], M)
+    sgx, sgy, sgz = _supercell_grid(cfg, scale)
+    pbits = P.bit_length() - 1
+    pmask = P - 1
+    dev = kv.device
+
+    lin = torch.where(vox_mask, _supercell_lin(vox, cfg, scale), _INT32_MAX)
+    # packed 4-bit local coords of each voxel in its supercell
+    local = (((vox[:, 0] & pmask) << (2 * pbits))
+             | ((vox[:, 1] & pmask) << pbits) | (vox[:, 2] & pmask))
+    if not cfg.presorted_pyramid:
+        order = torch.sort(lin, stable=True).indices
+        lin, local = lin[order], local[order]
+    corner = torch.stack(torch.meshgrid(
+        *[torch.arange(2, dtype=torch.int32, device=dev)] * 3,
+        indexing="ij"), -1).view(8, 3)
+    sgv = torch.tensor([sgx, sgy, sgz], dtype=torch.int32, device=dev)
+    lanes = torch.arange(C, dtype=torch.int32, device=dev)
+
+    def chunk(kvc, kmc):
+        k = kvc.shape[0]
+        nb = ((kvc - R) >> pbits)[:, None, :] + corner        # (k, 8, 3)
+        ok_nb = ((nb >= 0) & (nb < sgv)).all(-1)
+        qlin = torch.where(ok_nb, nb[..., 0] * (sgy * sgz) + nb[..., 1] * sgz
+                           + nb[..., 2], -1)
+        left = torch.searchsorted(lin, qlin, side="left")
+        cnt = torch.searchsorted(lin, qlin, side="right") - left
+        take = left[..., None] + lanes                         # (k, 8, C)
+        loc = local[take.clamp(0, M - 1)]
+        anchor = nb * P - kvc[:, None, :]                      # (k, 8, 3)
+        off = [anchor[..., a:a + 1] + ((loc >> (sh * pbits)) & pmask)
+               for a, sh in ((0, 2), (1, 1), (2, 0))]
+        in_box = (lanes < cnt[..., None]) & kmc[:, None, None]
+        for o in off:
+            in_box &= (o >= -R) & (o < R)
+        cell = (off[0] + R) * (P * P) + (off[1] + R) * P + (off[2] + R)
+        # in-box candidates are distinct voxels, so distinct cells; the
+        # dropped ones all go to one trash cell past the patches
+        trash = k * P * P * P
+        flat = torch.where(in_box, torch.arange(
+            k, dtype=torch.int32, device=dev)[:, None, None] * (P * P * P)
+            + cell, trash)
+        occ = torch.zeros(trash + 1, dtype=torch.float32, device=dev)
+        occ.index_fill_(0, flat.reshape(-1).long(), 1.0)
+        return occ[:-1].view(k, P, P, P)
+
+    kc = cfg.patch_query_chunk
+    if kc and kc < K and K % kc == 0:
+        return torch.cat([chunk(a, b) for a, b in
+                          zip(kv.split(kc), key_mask.split(kc))])
+    return chunk(kv, key_mask)
+
+
+def _knn_topk(score: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the ``k`` largest scores of each row, ties broken by the
+    lower index as ``lax.top_k`` breaks them: one top-k on an int64 key
+    that packs the score's order above the index's complement, so every
+    key is distinct."""
+    bits = score.contiguous().view(torch.int32).to(torch.int64)
+    order = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)  # float order
+    n = score.shape[-1]
+    key = (order << 32) | (n - 1 - torch.arange(n, device=score.device))
+    return torch.topk(key, k, dim=-1, sorted=False).indices
+
+
+def knn_indices(kv, vox, vox_mask, cfg: VoxelConfig, chunk: int = 128):
+    """``(K, knn)`` indices into ``vox`` of each keypoint voxel's
+    ``patch_knn`` nearest occupied voxels, by the KNN route's score: per
+    chunk of ``chunk`` keypoints, ``2 k.v - |v|^2 - |k|^2`` in float32
+    (padded voxels at ``|v|^2 = 1e12``) and its largest.  The CPU's matmul
+    rounds the score as JAX's does on the CPU; the card's may order
+    near-equal neighbours differently."""
+    knn = min(cfg.patch_knn, vox.shape[0])
+    v = vox.to(torch.float32)
+    v2 = torch.where(vox_mask, (v * v).sum(1), 1e12)
+    idx = []
+    for kc in kv.split(chunk):
+        kcf = kc.to(torch.float32)
+        score = 2.0 * (kcf @ v.T) - v2[None, :] - (kcf * kcf).sum(1)[:, None]
+        idx.append(_knn_topk(score, knn))
+    return torch.cat(idx)
+
+
+def _patches_one_scale(kv, key_mask, vox, vox_mask, cfg: VoxelConfig,
+                       chunk: int = 128):
+    """16^3 occupancy patches of one scale by the KNN route
+    (``caelo_tpu/voxel/grid.py:149-196``): ``(K, P, P, P)`` float32, the
+    :func:`knn_indices` neighbours inside each keypoint's box."""
+    return patches_from_neighbors(
+        knn_indices(kv, vox, vox_mask, cfg, chunk), kv, key_mask, vox,
+        vox_mask, cfg)
+
+
+def patches_from_neighbors(idx, kv, key_mask, vox, vox_mask,
+                           cfg: VoxelConfig):
+    """The KNN route's tail: the neighbours ``idx (K, knn)`` of each
+    keypoint voxel that lie inside its 16^3 box, scattered into its patch,
+    ``(K, P, P, P)`` float32."""
+    K = kv.shape[0]
+    P = cfg.patch_size
+    R = cfg.patch_radius
+    off = vox[idx] - kv[:, None, :]                         # (K, knn, 3)
+    in_box = (((off >= -R) & (off < R)).all(-1) & vox_mask[idx]
+              & key_mask[:, None])
+    cell = ((off[..., 0] + R) * (P * P) + (off[..., 1] + R) * P
+            + (off[..., 2] + R))
+    trash = K * P * P * P
+    flat = torch.where(in_box, torch.arange(
+        K, dtype=torch.int32, device=kv.device)[:, None] * (P * P * P) + cell,
+        trash)
+    occ = torch.zeros(trash + 1, dtype=torch.float32, device=kv.device)
+    occ.index_fill_(0, flat.reshape(-1).long(), 1.0)
+    return occ[:-1].view(K, P, P, P)
 
 
 def decode_voxels(coords: torch.Tensor, scale: int,
@@ -325,12 +476,21 @@ def extract_patches(key_pts: torch.Tensor, key_mask: torch.Tensor,
                     pyramid: VoxelPyramid, cfg: VoxelConfig = VoxelConfig()):
     """Multi-scale 16^3 occupancy patches around each keypoint: a tuple of
     three ``(K, 16, 16, 16)`` float32 tensors (scales 0.02 / 0.16 / 0.64 m).
+
+    Per scale, ``patch_method="window"`` takes the bit table where
+    ``bitgrid_slots[s] > 0`` and the supercell window query where it is 0;
+    any other method takes the KNN route (``caelo_tpu/voxel/grid.py:
+    633-650``).
     """
-    if cfg.patch_method != "window" or 0 in cfg.bitgrid_slots:
-        raise ValueError("only the bit-table patch route is ported "
-                         "(patch_method='window', every bitgrid_slots > 0)")
-    return tuple(
-        _patches_one_scale_bitgrid(
-            keypoint_voxels(key_pts, s, cfg), key_mask, pyramid.coords[s],
-            pyramid.masks[s], cfg, s, cfg.bitgrid_slots[s])
-        for s in range(len(cfg.scale_ratios)))
+    out = []
+    for s in range(len(cfg.scale_ratios)):
+        args = (keypoint_voxels(key_pts, s, cfg), key_mask,
+                pyramid.coords[s], pyramid.masks[s], cfg)
+        if cfg.patch_method != "window":
+            out.append(_patches_one_scale(*args))
+        elif cfg.bitgrid_slots[s] > 0:
+            out.append(_patches_one_scale_bitgrid(*args, s,
+                                                  cfg.bitgrid_slots[s]))
+        else:
+            out.append(_patches_one_scale_window(*args, s))
+    return tuple(out)

@@ -69,11 +69,24 @@ Phases (each raises on failure; the script then exits nonzero):
    the CAE-LO encoder describes the keypoints (not in the 3DFeatNet row,
    whose files carry descriptors), no K1; ms per frame, pair success, RRE,
    RTE, ATE and peak memory per row; (c) ``decode_patch``,
-   ``occupancy_stats`` and ``export_voxels_ply`` on frame 0.
+   ``occupancy_stats`` and ``export_voxels_ply`` on frame 0;
+11. the one-device remainder at the default config on phase 5's scans:
+   (a) ``compute_dtype="bfloat16"``: a window whose five convolutions run
+   in bfloat16 (forward hooks) with K1 and K2 per frame, frame 0 against
+   the port's bfloat16 on the CPU, ``tests/test_bf16.py``'s gates and the
+   poses against run A's float32, warm window and encoder ms in both
+   dtypes; (b) the window route (``bitgrid_slots=(0, 0, 0)``) bit-exact
+   and the KNN route (lists equal but for k-th-place ties) on frame 0
+   against the CPU, and a window of each with its ms and peak memory; (c)
+   ``presorted_pyramid=False`` on a shuffled frame-0 pyramid with K2, equal
+   to the presorted patches; (d) threaded window staging over an
+   ``NpyScanReader`` cache of the scans, poses bit-identical to staging
+   each window when due, and both times.
 
 Kernel launches are counted on the main path only (runs A, 6a, 6d, 7, the
-trainers and the window of phase 8, the commands of phases 9 and 10b), each
-count set to 0 just before its run and read just after.  Prints a
+trainers and the window of phase 8, the commands of phases 9 and 10b, the
+windows and the unsorted-pyramid query of phase 11), each count set to 0
+just before its run and read just after.  Prints a
 ``{"kernels": [...]}`` JSON line, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Without a CUDA device
 it fails; it never falls back to the CPU.
@@ -104,6 +117,12 @@ LOSS_MARGIN = {"respond": 0.95, "patch": 0.8}
 REPS = 50            # kernel timing launches per arm
 STAGE_REPS = 20      # per-frame stage timings per arm
 WINDOW_REPS = 3      # warm window timings
+# phase 11: frame 0 in bfloat16 on the card against the CPU, both rounding
+# float32 sums to bfloat16 in their own order: the share of the CPU's
+# keypoints the card keeps, and the descriptors' largest difference (8
+# bfloat16 units of a tanh code in [0.5, 1))
+BF16_SHARED = 0.95
+BF16_DESC_TOL = 2.0 ** -5
 # the least time of a kernel: bytes over the H100 SXM's 3.35 TB/s of device
 # memory, float32 operations over its 67 TFLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -1080,6 +1099,285 @@ def voxel_views(cfg, card, tmp, scans, feats):
                                  f"{n_lines} vertex lines")
 
 
+def shared_keypoints(fa, fb):
+    """Pixels of the valid keypoints of both features, and each one's row
+    in ``fa`` and in ``fb``; the share of ``fb``'s keypoints they are."""
+    def rows(f):
+        m = f.mask.cpu().numpy()
+        return {tuple(p): i for i, p in
+                enumerate(f.key_pixels.cpu().numpy().tolist()) if m[i]}
+
+    ra, rb = rows(fa), rows(fb)
+    common = sorted(set(ra) & set(rb))
+    return ([ra[p] for p in common], [rb[p] for p in common],
+            len(common) / max(len(rb), 1))
+
+
+def conv_dtypes(modules, fn):
+    """``fn()`` with a forward hook on every convolution of ``modules``:
+    returns ``(fn's result, {(conv, input dtype, output dtype)})``."""
+    import torch
+
+    seen, hooks = set(), []
+    for tag, module in modules:
+        for name, m in module.named_modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d)):
+                hooks.append(m.register_forward_hook(
+                    lambda mod, inp, out, n=f"{tag}.{name}": seen.add(
+                        (n, str(inp[0].dtype), str(out.dtype)))))
+    try:
+        return fn(), seen
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def one_device_remainder(cfg, dev, card, scans, params, nets, res_a, feats_a,
+                         window_batch, tmp):
+    """Phase 11: the one-device configurations beside the default.  (a) the
+    bfloat16 front end: a window with every convolution in bfloat16 (forward
+    hooks), K1 and K2 per frame, frame 0 against the port's bfloat16 on the
+    CPU and against run A's float32 (tests/test_bf16.py's gates), the warm
+    window and the encoder in both dtypes; (b) the window route
+    (``bitgrid_slots=(0, 0, 0)``) and the KNN route on frame 0 against the
+    CPU (the window route bit-exact; the KNN lists equal but for ties at
+    the k-th place, the patches then those of the card's lists) and a
+    window of each; (c) ``presorted_pyramid=False`` on a shuffled frame-0
+    pyramid with K2, equal to the presorted patches; (d)
+    ``run_odometry_windowed`` staging an ``NpyScanReader`` cache of the
+    scans in its producer thread, bit-identical to staging each window
+    when due.  Returns the launch counts of the windows and queries it
+    drives."""
+    import torch
+    from caelo_tpu_torch.data.scancache import NpyScanReader
+    from caelo_tpu_torch.eval.keypoint_flips import neighbor_ties
+    from caelo_tpu_torch.frontend.odometry import (run_odometry_windowed,
+                                                   window_starts)
+    from caelo_tpu_torch.frontend.registration import (
+        extract_frame_features, run_in)
+    from caelo_tpu_torch.models.weights_io import build_models
+    from caelo_tpu_torch.parallel.pipeline import make_sequence_processor
+    from caelo_tpu_torch.voxel import grid
+
+    net, enc = nets
+    vc = cfg.voxel
+    launches = {"saliency_map": 0, "gather_planes": 0}
+    n_frames = sum(min(s + WINDOW, N_SCANS) - s
+                   for s in window_starts(N_SCANS, WINDOW))
+
+    def window(run_cfg, what, want_k2=True, seq=None, **kw):
+        """One run of ``run_odometry_windowed`` over ``seq`` (default the
+        scans), counted and timed."""
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_odometry_windowed(scans if seq is None else seq, net, enc,
+                                    cfg=run_cfg, window=WINDOW, seed=0,
+                                    keep_features=True, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        used = launch_counts()
+        add_launches(launches, used)
+        res, feats = out
+        if not (np.isfinite(res.poses).all()
+                and bool(torch.isfinite(feats.descriptors).all())):
+            raise AssertionError(f"11 {what}: non-finite output")
+        want = {"saliency_map": n_frames,
+                "gather_planes": 3 * n_frames if want_k2 else 0}
+        if used != want:
+            raise AssertionError(f"11 {what}: launches {used}, want {want}")
+        log(f"11 {what}: {ms:.1f} ms for {N_SCANS} scans, pair successes "
+            f"{int(res.successes.sum())}/{N_SCANS - 1}, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB, launches "
+            f"{used}; {card}")
+        return res, feats, ms
+
+    # ---- (a) the bfloat16 front end
+    cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    (res16, feats16, _), convs = conv_dtypes(
+        (("respond", net), ("encoder", enc)),
+        lambda: window(cfg16, "bfloat16 window"))
+    log(f"11a convolutions seen in the bfloat16 window: {sorted(convs)}")
+    if len(convs) != 5 or any(i != "torch.bfloat16" or o != "torch.bfloat16"
+                              for _, i, o in convs):
+        raise AssertionError(f"11a the bfloat16 window ran convolutions "
+                             f"{sorted(convs)}")
+    if any(p.dtype != torch.float32 for m in nets for p in m.parameters()):
+        raise AssertionError("11a the bfloat16 run cast the caller's modules")
+    # frame 0 against the port's bfloat16 on the CPU
+    cpu_nets = build_models(*params, "cpu", cfg)
+    f_cpu = extract_frame_features(*cpu_nets,
+                                   torch.from_numpy(scans[0][0]),
+                                   torch.from_numpy(scans[0][1]), cfg16)
+    f_dev = type(f_cpu)(*(x[0] for x in feats16))
+    ia, ib, share = shared_keypoints(f_dev, f_cpu)
+    d = (f_dev.descriptors[ia].cpu() - f_cpu.descriptors[ib]).abs()
+    log(f"11a frame 0 bfloat16, card against CPU: {share:.4f} of the CPU's "
+        f"keypoints shared, descriptor max_abs_err {float(d.max()):.3e} "
+        f"over {len(ia)} (tolerance: share >= {BF16_SHARED}, error <= "
+        f"{BF16_DESC_TOL})")
+    if share < BF16_SHARED or float(d.max()) > BF16_DESC_TOL:
+        raise AssertionError("11a bfloat16 frame 0 differs between the card "
+                             "and the CPU beyond the tolerance")
+    # against run A's float32: tests/test_bf16.py's gates and the poses
+    f32 = type(f_cpu)(*(x[0] for x in feats_a))
+    ia, ib, share = shared_keypoints(f_dev, f32)
+    d = (f_dev.descriptors[ia[:64]] - f32.descriptors[ib[:64]]).abs()
+    rel_t = np.linalg.norm(res16.rel_ts - res_a.rel_ts, axis=1)
+    gt_t = np.array([1.2, 0.05, 0.0])
+    ok16 = res16.successes
+    t_err = np.linalg.norm(res16.rel_ts - gt_t, axis=1)[ok16]
+    r_err = np.degrees(np.arccos(np.clip(
+        (np.trace(res16.rel_Rs, axis1=1, axis2=2) - 1) / 2, -1, 1)))[ok16]
+    log(f"11a bfloat16 against run A's float32: frame 0 keypoint overlap "
+        f"{share:.4f} (gate > 0.7), descriptor max_abs_err "
+        f"{float(d.max()):.3e} on 64 shared (gate < 0.1); pair successes "
+        f"{int(ok16.sum())} against {int(res_a.successes.sum())}, the "
+        f"successes within {t_err.max():.4f} m / {r_err.max():.4f} deg of "
+        f"the true motion (gate 0.5 m / 1 deg); rel translations differ by "
+        f"up to {rel_t.max():.4f} m, poses by up to "
+        f"{np.abs(res16.poses - res_a.poses).max():.4f}")
+    if (share <= 0.7 or float(d.max()) >= 0.1 or not ok16.any()
+            or ok16.sum() < res_a.successes.sum() - 1
+            or t_err.max() >= 0.5 or r_err.max() >= 1.0):
+        raise AssertionError("11a bfloat16 fails test_bf16.py's gates")
+    # warm window and encoder, float32 against bfloat16, in turns
+    pts_w, msk_w = window_batch
+    gen = torch.Generator(device=dev).manual_seed(1)
+    procs = {"float32": make_sequence_processor(cfg),
+             "bfloat16": make_sequence_processor(cfg16)}
+    win = {k: [] for k in procs}
+    for k in ("float32", "bfloat16", "bfloat16", "float32"):
+        win[k] += timed_ms(lambda: procs[k](net, enc, pts_w, msk_w, gen),
+                           WINDOW_REPS)
+    with torch.no_grad():
+        pyr = grid.voxelize(torch.from_numpy(scans[0][0][:, :3]).to(dev),
+                            torch.from_numpy(scans[0][1]).to(dev), vc)
+        stacked = torch.cat(grid.extract_patches(f32.key_pts, f32.mask, pyr,
+                                                 vc))
+        chunks = stacked.split(cfg.encoder_chunk)
+        encs = {k: (lambda dt=dt: [run_in(enc, c, dt) for c in chunks])
+                for k, dt in (("float32", torch.float32),
+                              ("bfloat16", torch.bfloat16))}
+        enc_ms = {k: [] for k in encs}
+        for k in ("float32", "bfloat16", "bfloat16", "float32"):
+            enc_ms[k].append(cuda_ms(encs[k], STAGE_REPS))
+    log(f"11a warm {WINDOW}-frame window ms: " + "; ".join(
+        f"{k} {[round(t, 3) for t in v]}, median {np.median(v):.3f}"
+        for k, v in win.items()) + f"; encoder per frame ({len(stacked)} "
+        f"patches in chunks of {cfg.encoder_chunk}) ms: " + "; ".join(
+        f"{k} {[round(t, 4) for t in v]}" for k, v in enc_ms.items())
+        + f"; {card}")
+
+    # ---- (b) the window route and the KNN route
+    cfg_w = dataclasses.replace(cfg, voxel=dataclasses.replace(
+        vc, bitgrid_slots=(0, 0, 0)))
+    cfg_k = dataclasses.replace(cfg, voxel=dataclasses.replace(
+        vc, patch_method="knn"))
+    pyr_c = grid.VoxelPyramid(*([x.cpu() for x in f] for f in pyr))
+    kp_c, km_c = f32.key_pts.cpu(), f32.mask.cpu()
+    # the routes' integer inputs are the card's, on both devices: the float
+    # binning into voxels may differ between them (a division by a Python
+    # float on the card is a product with its reciprocal), which is
+    # counted here and is not the routes' work
+    pyr_cpu = grid.voxelize(torch.from_numpy(scans[0][0][:, :3]),
+                            torch.from_numpy(scans[0][1]), vc)
+
+    def voxel_keys(c, m):
+        c = c[m].to(torch.int64)
+        return (c[:, 0] << 42) | (c[:, 1] << 21) | c[:, 2]
+
+    n_vox = [int((~torch.isin(voxel_keys(a.cpu(), ma.cpu()),
+                              voxel_keys(b, mb))).sum())
+             for a, ma, b, mb in zip(pyr.coords, pyr.masks, pyr_cpu.coords,
+                                     pyr_cpu.masks)]
+    n_kv = [int((grid.keypoint_voxels(f32.key_pts, s, vc).cpu()
+                 != grid.keypoint_voxels(kp_c, s, vc)).any(1).sum())
+            for s in range(3)]
+    log(f"11b binning, card against CPU on frame 0: the card's voxels not "
+        f"in the CPU's per scale {n_vox} of {[int(m.sum()) for m in pyr.masks]}"
+        f", keypoint voxels differing {n_kv} of {int(f32.mask.sum())}")
+    for s in range(3):
+        kv = grid.keypoint_voxels(f32.key_pts, s, vc)
+        out_w = grid._patches_one_scale_window(
+            kv, f32.mask, pyr.coords[s], pyr.masks[s], cfg_w.voxel, s)
+        ref_w = grid._patches_one_scale_window(
+            kv.cpu(), km_c, pyr_c.coords[s], pyr_c.masks[s], cfg_w.voxel, s)
+        if not torch.equal(out_w.cpu(), ref_w):
+            raise AssertionError(f"11b window route scale {s}: card and CPU "
+                                 "patches differ")
+        log(f"11b window route, frame 0 scale {s}: patches bit-exact "
+            f"against the CPU, occupancy {float(ref_w.mean()):.4f}")
+    for s in range(3):
+        kv = grid.keypoint_voxels(f32.key_pts, s, vc)
+        args = (pyr.coords[s], pyr.masks[s], cfg_k.voxel)
+        idx_d = grid.knn_indices(kv, *args)
+        idx_c = grid.knn_indices(kv.cpu(), pyr_c.coords[s], pyr_c.masks[s],
+                                 cfg_k.voxel)
+        n_tied = neighbor_ties(pyr_c.coords[s], pyr_c.masks[s], idx_c,
+                               idx_d.cpu(), queries=kv.cpu(),
+                               query_mask=km_c)
+        got = grid._patches_one_scale(kv, f32.mask, *args)
+        from_lists = grid.patches_from_neighbors(
+            idx_d.cpu(), kv.cpu(), km_c, pyr_c.coords[s], pyr_c.masks[s],
+            cfg_k.voxel)
+        if not torch.equal(got.cpu(), from_lists):
+            raise AssertionError(f"11b KNN route scale {s}: the card's "
+                                 "patches are not those of its lists")
+        ref = grid.patches_from_neighbors(idx_c, kv.cpu(), km_c,
+                                          pyr_c.coords[s], pyr_c.masks[s],
+                                          cfg_k.voxel)
+        log(f"11b KNN route, frame 0 scale {s}: {n_tied} keypoints' lists "
+            f"differ from the CPU's, each at a k-th-place tie; "
+            f"{int((got.cpu() != ref).sum())} patch cells differ, all from "
+            f"those ties")
+    for run_cfg, what in ((cfg_w, "window-route window"),
+                          (cfg_k, "KNN-route window")):
+        window(run_cfg, what, want_k2=False)
+
+    # ---- (c) presorted_pyramid=False: a shuffled pyramid, K2
+    g = torch.Generator(device=dev).manual_seed(7)
+    perm = [torch.randperm(len(c), generator=g, device=dev)
+            for c in pyr.coords]
+    shuf = grid.VoxelPyramid(tuple(c[p] for c, p in zip(pyr.coords, perm)),
+                             tuple(m[p] for m, p in zip(pyr.masks, perm)),
+                             pyr.counts)
+    cfg_u = dataclasses.replace(vc, presorted_pyramid=False)
+    reset_launches()
+    out_u = grid.extract_patches(f32.key_pts, f32.mask, shuf, cfg_u)
+    torch.cuda.synchronize()
+    used = launch_counts()
+    add_launches(launches, used)
+    out_p = grid.extract_patches(f32.key_pts, f32.mask, pyr, vc)
+    if used != {"saliency_map": 0, "gather_planes": 3} or not all(
+            torch.equal(a, b) for a, b in zip(out_u, out_p)):
+        raise AssertionError(f"11c unsorted pyramid: launches {used}, or "
+                             "patches differ from the presorted ones")
+    log(f"11c presorted_pyramid=False on a shuffled frame-0 pyramid: patches "
+        f"equal to the presorted ones, launches {used}")
+
+    # ---- (d) threaded staging over a disk-backed cache of the scans
+    base = os.path.join(tmp, "scans")
+    np.save(base + ".pts.npy", np.stack([p for p, _ in scans]))
+    np.save(base + ".msk.npy", np.stack([m for _, m in scans]))
+    runs = {}
+    for threaded in (True, False, True, False):
+        res, _, ms = window(cfg, f"NpyScanReader window, threaded staging "
+                            f"{threaded}", seq=NpyScanReader(base),
+                            threaded_staging=threaded)
+        runs.setdefault(threaded, []).append((res, ms))
+    a, b = runs[True][0][0], runs[False][0][0]
+    if not (np.array_equal(a.poses, b.poses)
+            and np.array_equal(a.successes, b.successes)
+            and np.array_equal(a.poses, res_a.poses)):
+        raise AssertionError("11d threaded staging changed the poses")
+    log(f"11d staging: poses bit-identical threaded, synchronous and run A; "
+        f"ms threaded {[round(ms, 1) for _, ms in runs[True]]}, synchronous "
+        f"{[round(ms, 1) for _, ms in runs[False]]}; {card}")
+    return launches
+
+
 def timed_ms(fn, reps):
     """Host wall-clock ms per call of ``fn``, synchronised, after one warm
     call; returns the list of times."""
@@ -1504,6 +1802,11 @@ def main():
         detectors_card_vs_cpu(cfg, dev, smi, scans)
         add_launches(launches, keypoint_rows(cfg, smi, tmp, feats_a))
         voxel_views(cfg, smi, tmp, scans, feats_a)
+        # ---- 11. the one-device remainder: bfloat16, the window and KNN
+        # patch routes, an unsorted pyramid, threaded staging
+        add_launches(launches, one_device_remainder(
+            cfg, dev, smi, scans, (respond_np, encoder_np),
+            (respond_net, encoder), res_a, feats_a, (pts_w, msk_w), tmp))
 
     kernels = [
         {"name": "saliency_map", "route": "cuda",

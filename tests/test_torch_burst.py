@@ -16,7 +16,11 @@ from caelo_tpu_torch.backend import refine_runner as trr
 from test_burst import _frame_cloud, _make_world, _rotz
 
 E = 2048
-ICP_CFG = IcpConfig(max_points=E, max_iters=20, min_inliers=60)
+# max_points sets only rescue_bursts' map budget, min(2048, max_points) of
+# each frame's E points: at 512 the rescue's JAX map ICP runs the program
+# of the turn span's solves (the same static arguments and shapes), so JAX
+# compiles it once, and the splice repairs the trajectory as well
+ICP_CFG = IcpConfig(max_points=512, max_iters=20, min_inliers=60)
 
 
 def _turn_inputs():
@@ -68,17 +72,31 @@ def _jax_solve(pts, msk, init_R, init_t):
     return [np.asarray(x) for x in out]
 
 
+def _count_nn_passes(calls):
+    """Wrap the port's nearest_neighbors so each pass appends to ``calls``;
+    returns the function that restores it."""
+    nn = tburst.nearest_neighbors
+    tburst.nearest_neighbors = lambda *a: calls.append(1) or nn(*a)
+    return lambda: setattr(tburst, "nearest_neighbors", nn)
+
+
 @pytest.fixture(scope="module")
 def turn():
     """The JAX solve of the turn span at a static span of 8 (the 7 active
     pairs and one slot past them), and the port's solve of the 7 active
-    pairs with the early exit."""
+    pairs with the early exit, with the number of its correspondence
+    passes."""
     pts, msk, init_R, init_t, true_t = _turn_inputs()
     out_j = _jax_solve(pts, msk, init_R, init_t)
     args = [torch.from_numpy(a) for a in (pts, msk, init_R, init_t)]
-    out_t = tburst.burst_map_icp(*args, init_R.shape[0], icp_cfg=ICP_CFG,
-                                 frame_budget=512, thr_scale=2.0)
-    return args, out_j, out_t, true_t
+    calls = []
+    restore = _count_nn_passes(calls)
+    try:
+        out_t = tburst.burst_map_icp(*args, init_R.shape[0], icp_cfg=ICP_CFG,
+                                     frame_budget=512, thr_scale=2.0)
+    finally:
+        restore()
+    return args, out_j, out_t, true_t, len(calls)
 
 
 def test_burst_map_icp_matches_jax(turn):
@@ -94,7 +112,7 @@ def test_burst_map_icp_matches_jax(turn):
     tests/test_burst.py holds JAX to: interior rels within 0.1 m of the
     true motion.  The JAX slot past span_len passes its input rel through
     and is not ok; the port has no such slot."""
-    _, out_j, out_t, true_t = turn
+    _, out_j, out_t, true_t, _ = turn
     (rRs, rTs, oks, r0s, r1s, R_cl, t_cl, ok_cl, cl_res) = out_t
     L = rRs.shape[0]
     assert oks.all() and ok_cl
@@ -121,7 +139,7 @@ def test_jax_burst_map_icp_conditioning(turn):
     the rel translations, 5.1e-4 m in the per-frame residuals), so both
     bounds are at most twice the reference's own spread.  The per-frame
     success stays the same."""
-    args, out_j, _, _ = turn
+    args, out_j, _, _, _ = turn
     pts, msk, init_R, init_t = (a.numpy() for a in args)
     L = init_R.shape[0]
     nudged = _jax_solve(np.nextafter(pts, np.float32(np.inf)), msk, init_R,
@@ -145,24 +163,20 @@ def _icp_vs_map_all_trips(pc, msk, mpts, mmsk, R0, t0, icp_cfg, thr_scale):
 
 
 def test_burst_map_icp_early_exit_equals_all_trips(turn, monkeypatch):
-    """Ending each frame's ICP at its first frozen trip returns exactly
-    what all max_iters trips return, in fewer correspondence passes."""
-    args, _, early, _ = turn
+    """Ending each frame's ICP at its first frozen trip (the fixture's
+    solve) returns exactly what all max_iters trips return, in fewer
+    correspondence passes."""
+    args, _, early, _, n_early = turn
     calls = []
-    nn = tburst.nearest_neighbors
-    monkeypatch.setattr(tburst, "nearest_neighbors",
-                        lambda *a: calls.append(1) or nn(*a))
     monkeypatch.setattr(tburst, "icp_vs_map", _icp_vs_map_all_trips)
-    full = tburst.burst_map_icp(*args, args[2].shape[0], icp_cfg=ICP_CFG,
-                                frame_budget=512, thr_scale=2.0)
-    n_full = len(calls)
-    monkeypatch.undo()
-    calls.clear()
-    monkeypatch.setattr(tburst, "nearest_neighbors",
-                        lambda *a: calls.append(1) or nn(*a))
-    tburst.burst_map_icp(*args, args[2].shape[0], icp_cfg=ICP_CFG,
-                         frame_budget=512, thr_scale=2.0)
-    assert len(calls) < n_full
+    restore = _count_nn_passes(calls)
+    try:
+        full = tburst.burst_map_icp(*args, args[2].shape[0],
+                                    icp_cfg=ICP_CFG, frame_budget=512,
+                                    thr_scale=2.0)
+    finally:
+        restore()
+    assert n_early < len(calls)
     for a, b in zip(early, full):
         if isinstance(a, torch.Tensor):
             assert torch.equal(a, b)
@@ -226,9 +240,9 @@ def test_rescue_bursts_matches_jax():
     """rescue_bursts on the same corrupted trajectory, each package with
     its own make_batched_icp_fn as pair_icp_fn (the closure polish and the
     per-pair polish run), max_span 8 (JAX pads the 7 pairs to 8, not to
-    its 16 bucket): same spans, accepted, rejected and closure sources;
-    gains within RES_TOL (5e-4 m), poses within 1e-3.  The splice repairs
-    the trajectory."""
+    its 16 bucket), a 512-point frame budget of the map: same spans,
+    accepted, rejected and closure sources; gains within RES_TOL (5e-4 m),
+    poses within 1e-3.  The splice repairs the trajectory."""
     poses, feats, healthy, gt_pos = _splice_inputs()
     cfg = PipelineConfig(icp=ICP_CFG)
     ft = trr.RefinementFeatures(*(torch.from_numpy(x) for x in feats))

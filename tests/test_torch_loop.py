@@ -2,8 +2,9 @@
 CPU: the se3 additions, the pose graph (``optimize``, ``cg``,
 ``optimize_host``), ScanContext, the candidate searches,
 ``detect_and_close`` with injected registration, ``stage_loop_closure``
-on a revisiting scene with JAX's RANSAC draws injected, and the eval
-metrics.  Each test states its tolerance."""
+on a revisiting scene with JAX's RANSAC draws injected, the stage outputs
+on disk and the eval metrics (``run_full_pipeline`` on the same scene is
+in tests/test_torch_full_pipeline.py).  Each test states its tolerance."""
 import dataclasses
 
 import numpy as np
@@ -24,8 +25,6 @@ from caelo_tpu.eval import metrics as jmet
 from caelo_tpu.frontend import registration as jreg
 from caelo_tpu.frontend.matching import match_descriptors as jmatch
 from caelo_tpu.geometry import se3 as jse3
-from caelo_tpu.models.patch_encoder import PatchEncoder as JEncoder
-from caelo_tpu.models.respond_net import RespondLayer as JRespond
 from caelo_tpu.ops.masking import pad_points
 from caelo_tpu_torch import pipeline as tpipe
 from caelo_tpu_torch.backend import loopclosure as tlc
@@ -34,7 +33,7 @@ from caelo_tpu_torch.backend import scancontext as tsc
 from caelo_tpu_torch.eval import metrics as tmet
 from caelo_tpu_torch.frontend import registration as treg
 from caelo_tpu_torch.geometry import se3 as tse3
-from caelo_tpu_torch.models.weights_io import build_models
+from caelo_tpu_torch.models.weights_io import build_models, random_flax_params
 from test_posegraph import chain, make_square_trajectory, rels_from
 from test_scancontext import _cloud
 
@@ -350,11 +349,9 @@ def test_detect_and_close_matches_jax(rng, source):
 # ----------------------------------------------------- stage_loop_closure
 @pytest.fixture(scope="module")
 def nets():
-    key = jax.random.key(0)
-    f32 = lambda t: jax.tree.map(lambda x: np.asarray(x, np.float32), t)
-    rp = f32(JRespond().init(key, jnp.zeros(
-        (1, CFG.sensor.model_h, CFG.sensor.model_w, 3), jnp.float32)))
-    ep = f32(JEncoder().init(key, jnp.zeros((1, 16, 16, 16), jnp.float32)))
+    """random_flax_params(0) (Flax layout, made with numpy: no Flax init to
+    compile) for both packages."""
+    rp, ep = random_flax_params(0)
     return (rp, ep), build_models(rp, ep, "cpu", CFG)
 
 
@@ -522,107 +519,7 @@ def test_metrics_match_jax(rng):
                                    atol=1e-6)
 
 
-# ------------------------------------------------------- full pipeline
-def jax_anchor_samples(feats, cfg, seed=0):
-    """``anchor_samples`` seam of the port: the draw of JAX's burst anchor
-    registration, fold_in(key(seed + 31), i) (caelo_tpu/pipeline.py:
-    690-707), with the caller's prior and the 5 m gate."""
-    acfg = dataclasses.replace(
-        cfg, ransac=dataclasses.replace(cfg.ransac, min_inlier_abs=60))
-    frame = lambda k: jreg.FrameFeatures(*(jnp.asarray(x[k]) for x in feats))
-
-    def samples(i, j, R_prior, t_prior):
-        prior = (jnp.asarray(R_prior, jnp.float32),
-                 jnp.asarray(t_prior, jnp.float32))
-        return jax_draw(jax.random.fold_in(jax.random.key(seed + 31), i),
-                        frame(i), frame(j), acfg, prior, gate_m=5.0)
-
-    return samples
-
-
-BURST = (3, 4, 5, 6)        # thinned to 40 %: one burst, span (2, 7)
-
-
-def test_run_full_pipeline_matches_jax(nets):
-    """12 out-and-back scans, scans 3-6 thinned to 40 % (a 4-frame burst
-    through the turn-around), loop closure on (min_loop_gap 8), with JAX's
-    RANSAC draws injected at every stage: all four pose arrays within
-    1e-3; equal de-jumped frames, refinement stats, burst stats (spans,
-    accepted, rejected, closure sources) and loop edges.  Every stage
-    runs: the burst span is solved, a closure is accepted and the graph
-    solved."""
-    from test_torch_slice import _jax_window_samples
-
-    (rp, ep), (net, enc) = nets
-    scans = revisit_scans(thin=BURST)
-    R_tr = Rotation.from_euler("xyz", [90, 0, 90], degrees=True).as_matrix()
-    t_tr = np.array([0.01, -0.07, -0.27])
-    kw = dict(R_tr=R_tr, t_tr=t_tr, cfg=CFG, enable_loop_closure=True,
-              min_loop_gap=8, seed=0)
-    jres = jpipe.run_full_pipeline(scans, rp, ep, **kw)
-    jfeats = [jreg.extract_frame_features(rp, ep, jnp.asarray(p),
-                                          jnp.asarray(m), CFG)
-              for p, m in scans]
-    jfeats = [np.stack([np.asarray(f[k]) for f in jfeats]) for k in range(4)]
-    samples, _ = _jax_window_samples(jfeats, len(scans), len(scans), 0, CFG)
-    tres = tpipe.run_full_pipeline(
-        scans, net, enc, samples=samples,
-        loop_samples=jax_loop_samples(jfeats, CFG),
-        anchor_samples=jax_anchor_samples(jfeats, CFG), **kw)
-    np.testing.assert_array_equal(tres.odometry.successes,
-                                  jres.odometry.successes)
-    for name in ("poses_raw", "poses_dejumped", "poses_refined",
-                 "poses_final"):
-        np.testing.assert_allclose(getattr(tres, name), getattr(jres, name),
-                                   atol=1e-3, rtol=0, err_msg=name)
-    assert tres.dejumped_frames == jres.dejumped_frames
-    assert (dataclasses.asdict(tres.refine_stats)
-            == dataclasses.asdict(jres.refine_stats))
-    bt, bj = tres.burst_stats, jres.burst_stats
-    assert bt.spans == bj.spans == [(2, 7)]
-    assert bt.accepted == bj.accepted and bt.rejected == bj.rejected
-    assert bt.accepted + bt.rejected == [(2, 7)] and bt.gains
-    src = lambda s: [(a, b, c.split("(")[0]) for a, b, c in s.closures]
-    assert src(bt) == src(bj)
-    np.testing.assert_allclose(bt.gains, bj.gains, atol=1e-4)
-    assert tres.n_loop_closures == jres.n_loop_closures >= 1
-    np.testing.assert_array_equal(tres.loop_edge_i, jres.loop_edge_i)
-    np.testing.assert_array_equal(tres.loop_edge_j, jres.loop_edge_j)
-    assert np.abs(tres.poses_final - tres.poses_refined).max() > 1e-6
-
-
-def test_run_full_pipeline_keeps_burst_pairs_out_of_refinement(nets,
-                                                               monkeypatch):
-    """Pairs inside a burst span reach the pairwise refinement marked
-    trusted (so it skips them; stage 3b owns them), as the JAX pipeline's
-    ``refine_trusted`` does; every other pair keeps the front end's
-    ``success & healthy`` trust.  Refinement and rescue are stubbed: this
-    checks what the pipeline hands them."""
-    from caelo_tpu_torch.backend.burst import BurstStats
-
-    _, (net, enc) = nets
-    seen = {}
-
-    def stage_refinement(poses_dj, *a, pair_trusted=None, **k):
-        seen["trusted"] = pair_trusted
-        return poses_dj, tpipe.refine.RefineStats()
-
-    def rescue_bursts(poses, ref_feats, healthy, *a, **k):
-        seen["healthy"] = healthy
-        return poses, BurstStats(spans=[(2, 7)])
-
-    monkeypatch.setattr(tpipe, "stage_refinement", stage_refinement)
-    monkeypatch.setattr(tpipe, "rescue_bursts", rescue_bursts)
-    res = tpipe.run_full_pipeline(revisit_scans(thin=BURST), net, enc,
-                                  cfg=CFG, enable_loop_closure=False)
-    healthy = seen["healthy"]
-    assert not healthy[list(BURST)].any() and healthy.sum() == 8
-    want = res.odometry.successes & healthy[:-1] & healthy[1:]
-    want[2:7] = True
-    np.testing.assert_array_equal(seen["trusted"], want)
-    assert res.burst_stats.spans == [(2, 7)]
-
-
+# ------------------------------------------------------- stage outputs
 def test_stage_outputs_round_trip(nets, tmp_path):
     """preprocess_to_store on 3 scans, then load_stage_inputs: the features
     and refinement features as the front end returned them (bit-equal),
