@@ -139,9 +139,10 @@ def window_starts(n: int, window: int) -> list:
 
 
 def staged_windows(scans, n: int, window: int, pin: bool = False,
-                   threaded: bool = True):
+                   threaded: bool = False):
     """Yield ``(start, stop, pts, msk)`` per window: frames ``start`` to
-    ``stop - 1`` of ``scans`` stacked into CPU tensors, pinned when ``pin``.
+    ``stop - 1`` of ``scans``, each frame read once and stacked straight
+    into CPU tensors, pinned ones when ``pin``.
 
     With ``threaded`` a producer thread stages the windows (the reads of a
     disk-backed sequence and the stack) into a queue of at most two, so
@@ -150,14 +151,16 @@ def staged_windows(scans, n: int, window: int, pin: bool = False,
     producer is raised here, in the caller's thread; if the caller stops
     early, the producer stops too.
     """
+    def stack(xs):
+        out = torch.empty((len(xs),) + tuple(xs[0].shape), dtype=xs[0].dtype,
+                          pin_memory=pin)
+        return torch.stack(xs, out=out)
+
     def stage(start):
         stop = min(start + window, n)
-        pts = torch.stack([torch.as_tensor(scans[i][0])
-                           for i in range(start, stop)])
-        msk = torch.stack([torch.as_tensor(scans[i][1])
-                           for i in range(start, stop)])
-        if pin:
-            pts, msk = pts.pin_memory(), msk.pin_memory()
+        frames = [scans[i] for i in range(start, stop)]
+        pts = stack([torch.as_tensor(p) for p, _ in frames])
+        msk = stack([torch.as_tensor(m) for _, m in frames])
         return start, stop, pts, msk
 
     starts = window_starts(n, window)
@@ -210,7 +213,7 @@ def run_odometry_windowed(scans, respond_net, encoder, R_tr=None, t_tr=None,
                           keep_refine_features: bool = False,
                           samples=None,
                           progress: Optional[Callable[[int], None]] = None,
-                          threaded_staging: bool = True) -> tuple:
+                          threaded_staging: bool = False) -> tuple:
     """Windowed frame-to-frame odometry over ``scans``, ``(pts (N, 4), mask
     (N,))`` numpy arrays or tensors.  An indexable sequence (a list, a
     ``data.scancache.NpyScanReader``) is read one window at a time; any
@@ -221,11 +224,15 @@ def run_odometry_windowed(scans, respond_net, encoder, R_tr=None, t_tr=None,
     Runs on the device of ``respond_net``'s parameters.  Each window is one
     call of the window processor; windows overlap by one frame.  Unlike the
     JAX version, the last window is not padded to ``window`` frames (eager
-    PyTorch needs no fixed shape).  As in JAX, a producer thread stages the
-    windows (``staged_windows``: reads and stack, pinned on a card, a queue
-    of two) while the device works; the copy to the card and every RANSAC
-    draw stay in the calling thread, so the results are those of
-    ``threaded_staging=False``, which stages each window when it is due.
+    PyTorch needs no fixed shape).  Each window is staged when it is due
+    (``staged_windows``: reads and stack, pinned on a card) and copied to
+    the card without blocking.  ``threaded_staging=True`` stages in a
+    producer thread with a queue of two, as JAX always does; the copy and
+    every RANSAC draw stay in the calling thread, so the results are the
+    same bit for bit.  It is off by default: on the H100 it was not faster
+    over 17 scans, from a page-cached ``NpyScanReader`` too (``PERF.md``
+    §5), and a sequence whose reads would hide behind the device is not
+    measured yet.
 
     ``samples``, if given, is ``(pass1, pass2)``: ``(n-1, H, S)`` RANSAC pair
     indices per global pair for the plain pass and the motion-prior retry

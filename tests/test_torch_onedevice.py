@@ -297,7 +297,7 @@ def test_staging_stops_with_its_consumer():
     """A consumer that stops after the first window stops the producer: no
     staging thread is left once the generator is closed."""
     scans = [(np.zeros((8, 4), np.float32), np.ones(8, bool))] * 9
-    gen = todo.staged_windows(scans, len(scans), 3)
+    gen = todo.staged_windows(scans, len(scans), 3, threaded=True)
     start, stop, pts, msk = next(gen)
     assert (start, stop, tuple(pts.shape), tuple(msk.shape)) == (
         0, 3, (3, 8, 4), (3, 8))
