@@ -11,8 +11,8 @@ tm`` per edge.
 * ``optimize_host``: the exact solve the pipeline calls, host float64 with
   a scipy sparse LU; a numpy copy of the JAX function (its module imports
   JAX).
-
-The edge-sharded ``optimize_sharded`` is not ported yet (multi-GPU).
+* ``optimize_sharded``: ``optimize`` with the edges over the ranks of a
+  mesh's ``"data"`` dimension and the edge sums all-reduced.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ import torch
 from torch.func import jvp, vjp
 
 from ..geometry import se3
+from ..parallel.mesh import all_reduce_sum, axis, shard_rows
 
 
 class PoseGraph(NamedTuple):
@@ -94,7 +95,9 @@ def cg(A, b: torch.Tensor, maxiter: int, tol: float = 1e-5,
     return x
 
 
-def _gn_step(R, t, g: PoseGraph, damping: float, cg_iters: int):
+def _gn_step(R, t, g: PoseGraph, damping: float, cg_iters: int, reduce):
+    """One Gauss-Newton step; ``reduce`` sums the edge terms (``J^T J v``,
+    the gradient, the cost) over the ranks that hold the other edges."""
     n = R.shape[0]
 
     def res_of_delta(delta_flat):
@@ -108,13 +111,13 @@ def _gn_step(R, t, g: PoseGraph, damping: float, cg_iters: int):
     def JTJv(v):
         _, jv = jvp(res_of_delta, (zero,), (v,))
         (jtjv,) = vjp_fn(jv)
-        return jtjv + damping * v
+        return reduce(jtjv) + damping * v
 
     (b,) = vjp_fn(r0)
-    delta = cg(JTJv, -b, maxiter=cg_iters).reshape(n, 6)
+    delta = cg(JTJv, -reduce(b), maxiter=cg_iters).reshape(n, 6)
     delta = torch.cat([torch.zeros_like(delta[:1]), delta[1:]])
     Rn, tn = _apply_delta(R, t, delta)
-    return Rn, tn, (r0 * r0).sum()
+    return Rn, tn, reduce((r0 * r0).sum())
 
 
 def optimize(R0: torch.Tensor, t0: torch.Tensor, graph: PoseGraph,
@@ -122,6 +125,11 @@ def optimize(R0: torch.Tensor, t0: torch.Tensor, graph: PoseGraph,
     """Gauss-Newton pose-graph solve on the device of ``R0``.  Returns
     ``(R, t, cost)``, ``cost`` the squared residual at the last step's
     start."""
+    return _optimize(R0, t0, graph, n_iters, cg_iters, damping,
+                     lambda x: x)
+
+
+def _optimize(R0, t0, graph: PoseGraph, n_iters, cg_iters, damping, reduce):
     dev, dt = R0.device, R0.dtype
     g = PoseGraph(*(x.to(dev) if x.dtype in (torch.int32, torch.int64)
                     else x.to(dev, dt) for x in graph))
@@ -129,8 +137,30 @@ def optimize(R0: torch.Tensor, t0: torch.Tensor, graph: PoseGraph,
     cost = torch.zeros((), dtype=dt, device=dev)
     with torch.no_grad():
         for _ in range(n_iters):
-            R, t, cost = _gn_step(R, t, g, damping, cg_iters)
+            R, t, cost = _gn_step(R, t, g, damping, cg_iters, reduce)
     return R, t, cost
+
+
+def optimize_sharded(mesh, n_nodes: int, n_iters: int = 10,
+                     cg_iters: int = 30, damping: float = 1e-4):
+    """Distributed solve: edges sharded over the mesh's ``"data"`` ranks,
+    poses replicated, the ``J^T J v`` of every CG step, the gradient and
+    the cost all-reduced across the ranks, so every rank takes the same
+    steps (the same fixed Gauss-Newton iterations as ``optimize``).
+
+    Returns ``fn(R0, t0, graph)``, called by every data rank with the whole
+    graph; each rank keeps its contiguous block of the edges, so pad the
+    edge count to a multiple of the data size with weight-0 edges.
+    """
+    group, _, _ = axis(mesh)
+
+    def solve(R0, t0, graph: PoseGraph):
+        if R0.shape[0] != n_nodes:
+            raise ValueError(f"{R0.shape[0]} poses for {n_nodes} nodes")
+        return _optimize(R0, t0, shard_rows(graph, mesh), n_iters, cg_iters,
+                         damping, lambda x: all_reduce_sum(x, group))
+
+    return solve
 
 
 def _host(x) -> np.ndarray:

@@ -7,7 +7,8 @@
 * ``align_score``: the best column-shifted cosine similarity of two scan
   contexts and the yaw that aligns them;
 * ``sc_correlation_matrix``: the all-pairs, all-shift correlation of a
-  trajectory as S rolled matmuls with a running max.
+  trajectory as S rolled matmuls with a running max (``sc_correlation_rows``:
+  a block of its query rows, bit for bit).
 
 Every function is batched over leading axes.
 """
@@ -17,6 +18,7 @@ import math
 
 import torch
 
+from .. import divide
 N_RINGS = 16
 N_SECTORS = 64
 
@@ -33,11 +35,11 @@ def scan_context(pts: torch.Tensor, mask: torch.Tensor,
     batch = pts.shape[:-2]
     x, y, z = pts[..., 0], pts[..., 1], pts[..., 2]
     r = torch.hypot(x, y)
-    ring = torch.clamp((r / max_range * n_rings).to(torch.int32), 0,
+    ring = torch.clamp((divide(r, max_range) * n_rings).to(torch.int32), 0,
                        n_rings - 1)
     theta = torch.atan2(y, x)                  # [-pi, pi)
     sector = torch.clamp(
-        ((theta + math.pi) / (2.0 * math.pi) * n_sectors).to(torch.int32),
+        (divide(theta + math.pi, 2.0 * math.pi) * n_sectors).to(torch.int32),
         0, n_sectors - 1)
     RS = n_rings * n_sectors
     seg = (ring * n_sectors + sector).long().reshape(-1, pts.shape[-2])
@@ -96,6 +98,20 @@ def align_score_batch(sc_q: torch.Tensor, sc_cands: torch.Tensor):
     return align_score(sc_q.expand_as(sc_cands), sc_cands)
 
 
+# query rows per matmul of the correlation matrix, by device type.  The
+# blocks start at multiples of it, so a split of the rows at block
+# boundaries (the sharded search, parallel/pipeline.py) repeats the whole
+# matrix's matmuls exactly: a row's float32 sums depend on the matmul's row
+# count.  MKL's sgemm keeps its rate at 64 rows; cuBLAS needs about a
+# thousand to fill the card (tools/ab_sc.py)
+SC_ROW_BLOCK = {"cpu": 64, "cuda": 1024}
+
+
+def sc_row_block(device) -> int:
+    """``SC_ROW_BLOCK`` of ``device``'s type."""
+    return SC_ROW_BLOCK[torch.device(device).type]
+
+
 def sc_correlation_matrix(scs: torch.Tensor):
     """All-pairs, all-shift ScanContext cross-correlation over a trajectory.
 
@@ -107,20 +123,32 @@ def sc_correlation_matrix(scs: torch.Tensor):
     matrix against its sector-rolled self with a running max: live memory
     stays at two (N, N) buffers.
     """
+    return sc_correlation_rows(scs, 0, scs.shape[0])
+
+
+def sc_correlation_rows(scs: torch.Tensor, lo: int, hi: int):
+    """Rows ``lo:hi`` of :func:`sc_correlation_matrix`, bit for bit: the
+    query rows go in blocks of ``sc_row_block(scs.device)`` from a multiple
+    of it, so ``lo`` must be one (``hi`` may be any row up to N)."""
+    blk = sc_row_block(scs.device)
+    if lo % blk:
+        raise ValueError(f"lo={lo} is not a multiple of {blk}")
     N, R, S = scs.shape
     flat = scs.reshape(N, R * S)
     inv = 1.0 / torch.clamp_min(torch.linalg.vector_norm(flat, dim=1), 1e-9)
     A = flat * inv[:, None]
-    best = torch.full((N, N), -torch.inf, dtype=torch.float32,
+    best = torch.full((hi - lo, N), -torch.inf, dtype=torch.float32,
                       device=scs.device)
-    best_s = torch.zeros((N, N), dtype=torch.int32, device=scs.device)
+    best_s = torch.zeros((hi - lo, N), dtype=torch.int32, device=scs.device)
     for s in range(S):
         # roll by -s: <A[i], roll(B[j], -s)> matches align_score's scores[s]
         Bs = torch.roll(scs, -s, dims=-1).reshape(N, R * S) * inv[:, None]
-        sim = A @ Bs.T
-        upd = sim > best
-        best = torch.where(upd, sim, best)
-        best_s = torch.where(upd, s, best_s)
+        for b in range(0, hi - lo, blk):
+            top, top_s = best[b:b + blk], best_s[b:b + blk]
+            sim = A[lo + b:lo + b + len(top)] @ Bs.T
+            upd = sim > top
+            torch.where(upd, sim, top, out=top)
+            top_s.masked_fill_(upd, s)
     return best, _yaw_of_shift(best_s, S)
 
 

@@ -11,9 +11,11 @@ Every command runs on the CUDA device (``--platform cuda``, the default)
 and on the CPU only when asked (``--platform cpu``); without a CUDA device
 the default fails rather than fall back.  ``odometry --keypoints`` runs
 every keypoint source: the CAE-LO window, the ISS / Harris3D / SIFT3D /
-random baselines and external keypoint trees.  ``scaling`` and ``bench``
-are not ported yet and raise, naming the part of ``ROADMAP.md`` that brings
-them.
+random baselines and external keypoint trees.  ``scaling`` spawns one
+rank per CUDA device (``--platform cpu --ranks R``: R gloo ranks on the
+CPU) and sweeps the data-parallel feature extractor over them.  ``bench``
+is not ported yet and raises, naming the part of ``ROADMAP.md`` that
+brings it.
 """
 from __future__ import annotations
 
@@ -331,9 +333,38 @@ def cmd_full(args):
 
 
 def cmd_scaling(args):
-    raise NotImplementedError(
-        "scaling: the frames/s sweep over devices is not ported yet (slice "
-        "H of ROADMAP.md: eval/scaling.py and multi-GPU)")
+    """Frames/s of the data-parallel feature extractor over 1, 2, 4, ...
+    ranks at ``small_test_config``: one NCCL rank per visible CUDA device,
+    or with ``--platform cpu`` ``--ranks`` gloo ranks."""
+    from .parallel.mesh import run_ranks
+
+    device = _device(args)
+    if device.type == "cuda":
+        n_ranks = args.ranks or torch.cuda.device_count()
+        if n_ranks > torch.cuda.device_count():
+            raise SystemExit(f"--ranks {n_ranks}: only "
+                             f"{torch.cuda.device_count()} CUDA devices")
+    else:
+        n_ranks = args.ranks or 1
+    out = run_ranks(_scaling_rank, n_ranks, device_type=device.type,
+                    args=(device.type, args.frames_per_device))
+    print(json.dumps(out[0], indent=2))
+    return 0
+
+
+def _scaling_rank(rank, world, device_type, frames_per_device):
+    """One rank of ``cmd_scaling``: the sweep over the world."""
+    from .eval.scaling import scaling_sweep
+
+    device = setup_device(f"cuda:{rank}" if device_type == "cuda" else "cpu")
+    cfg = small_test_config()
+    if weights_io.reference_models_available():
+        respond, encoder = _reference_models(device, cfg)
+    else:
+        respond, encoder = weights_io.build_models(
+            *weights_io.random_flax_params(0), device, cfg)
+    return scaling_sweep(respond, encoder, cfg,
+                         frames_per_device=frames_per_device)
 
 
 def cmd_bench(args):
@@ -390,9 +421,11 @@ def main(argv=None):
     _add_common(p)
     p.set_defaults(fn=cmd_full)
 
-    p = sub.add_parser("scaling", help="frames/s scaling sweep over devices "
-                                       "(not ported yet: raises)")
+    p = sub.add_parser("scaling", help="frames/s scaling sweep over devices")
     p.add_argument("--frames-per-device", type=int, default=4)
+    p.add_argument("--ranks", type=int, default=None,
+                   help="ranks to spawn (default: one per CUDA device; "
+                        "1 with --platform cpu)")
     _add_common(p)
     p.set_defaults(fn=cmd_scaling)
 

@@ -18,6 +18,7 @@ from typing import Callable, Iterable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import setup_device
 from .backend import refine
@@ -35,6 +36,8 @@ from .frontend.odometry import OdometryResult, run_odometry_windowed
 from .frontend.registration import (FrameFeatures, register_pair,
                                     register_pair_with_prior)
 from .geometry.kitti_pose import lidar_rel_to_cam, rel_pose_lidar
+from .parallel.mesh import world_mesh
+from .parallel.pipeline import make_sharded_icp_fn
 from .utils.telemetry import MetricsLog, StageTimer
 
 
@@ -93,14 +96,23 @@ def stage_refinement(poses_dj, ref_feats, inlier_pairs, R_tr, t_tr,
 
     ``batched`` solves all keyframe spans in batched ICP passes
     (``refine_odometry_batched``); otherwise the sequential loop runs one
-    span per ICP call.  The JAX version shards the span batch over a
-    device mesh when it sees several devices; the port has one device path.
+    span per ICP call.  In an initialised process group of more than one
+    rank the span batch is sharded over the ranks (``make_sharded_icp_fn``
+    on ``world_mesh()``, made once per world), as the JAX version shards it
+    over its devices: the stage is then a collective, so every rank must
+    call it with the same inputs, and its spans go 4 to an ICP call on each
+    rank instead of 16 to a one-device call, so its poses may differ
+    from the one-device stage's in the last bits.
     """
     rel_lidar_fn, apply_rel_fn = _pose_fns(R_tr, t_tr)
     if batched:
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            icp_fn = make_sharded_icp_fn(ref_feats, world_mesh(), cfg)
+        else:
+            icp_fn = make_batched_icp_fn(ref_feats, cfg)
         return refine.refine_odometry_batched(
-            poses_dj, make_batched_icp_fn(ref_feats, cfg), rel_lidar_fn,
-            apply_rel_fn, inlier_idx_pairs=inlier_pairs, cfg=cfg.refine,
+            poses_dj, icp_fn, rel_lidar_fn, apply_rel_fn,
+            inlier_idx_pairs=inlier_pairs, cfg=cfg.refine,
             pair_trusted=pair_trusted)
     return refine.refine_odometry(
         poses_dj, make_icp_fn(ref_feats, cfg), rel_lidar_fn, apply_rel_fn,

@@ -11,9 +11,28 @@ import math
 
 import torch
 
+from .. import divide
 from ..config import SensorConfig
 
 _INT32_MAX = 2 ** 31 - 1
+
+
+def ring_bins(pts: torch.Tensor, mask: torch.Tensor,
+              cfg: SensorConfig = SensorConfig()):
+    """Each point's cell of the spherical-ring image: ``(range, row, col,
+    in_bounds)``, ``row`` and ``col`` int32 (``col`` clamped to the
+    image)."""
+    x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
+    r = torch.sqrt(x * x + y * y + z * z)
+    valid = mask & (r > 0)
+    rsafe = torch.where(valid, r, 1.0)
+    col = torch.floor(divide(math.pi - torch.atan2(y, x), cfg.azimuth_res)
+                      ).to(torch.int32)
+    beta = torch.arcsin(torch.clamp(z / rsafe, -1.0, 1.0))
+    row = cfg.img_h - torch.floor(divide(beta, cfg.vertical_res)
+                                  + cfg.vertical_pixel_offset).to(torch.int32)
+    col = torch.clamp(col, 0, cfg.img_w - 1)
+    return r, row, col, valid & (row >= 0) & (row < cfg.img_h)
 
 
 def project_to_spherical_ring(pts: torch.Tensor, mask: torch.Tensor,
@@ -29,18 +48,7 @@ def project_to_spherical_ring(pts: torch.Tensor, mask: torch.Tensor,
       counter: ``(ImgH, ImgW)`` int32 -- points per cell.
     """
     H, W = cfg.img_h, cfg.img_w
-    x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
-    r = torch.sqrt(x * x + y * y + z * z)
-    valid = mask & (r > 0)
-    rsafe = torch.where(valid, r, 1.0)
-
-    col = torch.floor((math.pi - torch.atan2(y, x)) / cfg.azimuth_res
-                      ).to(torch.int32)
-    beta = torch.arcsin(torch.clamp(z / rsafe, -1.0, 1.0))
-    row = H - torch.floor(beta / cfg.vertical_res + cfg.vertical_pixel_offset
-                          ).to(torch.int32)
-    col = torch.clamp(col, 0, W - 1)
-    inb = valid & (row >= 0) & (row < H)
+    r, row, col, inb = ring_bins(pts, mask, cfg)
     flat = torch.where(inb, row * W + col, H * W).long()   # H*W = trash slot
 
     # winner election: one scatter-min of (quantized range << idx_bits | idx)

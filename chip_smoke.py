@@ -75,18 +75,35 @@ Phases (each raises on failure; the script then exits nonzero):
    in bfloat16 (forward hooks) with K1 and K2 per frame, frame 0 against
    the port's bfloat16 on the CPU, ``tests/test_bf16.py``'s gates and the
    poses against run A's float32, warm window and encoder ms in both
-   dtypes; (b) the window route (``bitgrid_slots=(0, 0, 0)``) bit-exact
+   dtypes; (b) the card's binning equal to the CPU's on frame 0 (the
+   voxel pyramid, every point's voxel and the keypoint voxels at all
+   three scales; the ring image's cells but at atan2 / asin bin edges),
+   the window route (``bitgrid_slots=(0, 0, 0)``) bit-exact
    and the KNN route (lists equal but for k-th-place ties) on frame 0
    against the CPU, and a window of each with its ms and peak memory; (c)
    ``presorted_pyramid=False`` on a shuffled frame-0 pyramid with K2, equal
    to the presorted patches; (d) threaded window staging over an
    ``NpyScanReader`` cache of the scans, poses bit-identical to staging
    each window when due (the default), and both times, in turns
-   synchronous, threaded, threaded, synchronous.
+   synchronous, threaded, threaded, synchronous;
+12. multi-GPU through ``torch.distributed``: (a) one spawned rank in a
+   real NCCL world on the card runs the data-parallel feature extractor on
+   16 of phase 5's scans at the default config (K1 once and K2 three times
+   per frame, features bit-identical to ``extract_frame_features``), the
+   halo exchange, the sharded ScanContext correlation over 88 random
+   signatures and the span-sharded ICP on phase 6's 16 spans (both
+   bit-identical), the sharded pose graph (translations within 1e-2, cost
+   within 1e-6 of ``optimize``), one DP and one TP patch-AE step at the
+   batch of 256 (loss within rtol 1e-5 of the one-device step), each
+   path's ms by CUDA events, the extractor's frames/s and peak memory;
+   then ``cli scaling`` (the sweep ``[1]``); (b) ``dryrun_multigpu(4)``:
+   4 gloo ranks on the host's CPU run every sharded path with cross-rank
+   halos, row blocks and TP shards, each checked in rank 0.
 
 Kernel launches are counted on the main path only (runs A, 6a, 6d, 7, the
 trainers and the window of phase 8, the commands of phases 9 and 10b, the
-windows and the unsorted-pyramid query of phase 11), each count set to 0
+windows and the unsorted-pyramid query of phase 11, and 12a's extractor in
+its rank, whose counts come back to this process), each count set to 0
 just before its run and read just after.  Prints a
 ``{"kernels": [...]}`` JSON line, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Without a CUDA device
@@ -125,15 +142,14 @@ WINDOW_REPS = 3      # warm window timings
 # bfloat16 differs from float32 on the card (NVIDIA H100 80GB HBM3, 700 W)
 BF16_SHARED = 0.95
 BF16_DESC_TOL = 2.0 ** -8
-# phase 11b: the card bins a coordinate into a voxel by a product with the
-# reciprocal of the voxel size, the CPU by a division (ROADMAP.md §3, open):
-# a coordinate may change voxel only within BIN_ULPS float32 units of a
-# voxel edge (the float32 voxel size, its reciprocal and each side's
-# rounding move the quotient by at most one unit each), and at most
-# BIN_SHARE of a scale's valid voxels may differ (18 of 99,598 measured at
-# scale 0)
-BIN_ULPS = 4
-BIN_SHARE = 1e-3
+# phase 11b: the card bins coordinates into voxels as the CPU does (both
+# divide; ROADMAP.md §3, fixed): the share of a scale's voxels, of the
+# points and of the keypoints that may fall in another voxel is 0
+BIN_SHARE = 0
+# phase 11b: a point may fall in another ring-image cell on the card only
+# where atan2 / asin put it within this relative distance of a bin edge
+# (tests/test_torch_models.py's _edge_cells)
+RING_EDGE = 1e-4
 # the least time of a kernel: bytes over the H100 SXM's 3.35 TB/s of device
 # memory, float32 operations over its 67 TFLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -1124,15 +1140,18 @@ def shared_keypoints(fa, fb):
             len(common) / max(len(rb), 1))
 
 
-def off_edge(x, a, b, vs):
-    """Of the float32 coordinates ``x`` (on the CPU) binned by ``vs`` into
-    ``a`` on the card and ``b`` on the CPU, the number that differ and lie
-    farther than ``BIN_ULPS`` float32 units of ``x / vs`` from a bin
-    edge."""
-    d = (a != b).numpy()
-    q = x.numpy()[d].astype(np.float64) / vs
-    ulp = np.spacing(np.abs(q).astype(np.float32)).astype(np.float64)
-    return int((np.abs(q - np.round(q)) > BIN_ULPS * ulp).sum())
+def ring_off_edge(pts, differ, sensor):
+    """Of the float32 points ``pts`` (CPU numpy), those flagged ``differ``
+    whose float64 column and row coordinates both lie farther than
+    ``RING_EDGE`` from a bin edge."""
+    x, y, z = (pts[differ, i].astype(np.float64) for i in range(3))
+    r = np.sqrt(x * x + y * y + z * z)
+    colf = (np.pi - np.arctan2(y, x)) / sensor.azimuth_res
+    rowf = (np.arcsin(np.clip(z / np.maximum(r, 1e-9), -1, 1))
+            / sensor.vertical_res + sensor.vertical_pixel_offset)
+    near = lambda f: np.abs(f - np.round(f)) < RING_EDGE * np.maximum(
+        1, np.abs(f))
+    return int((~(near(colf) | near(rowf))).sum())
 
 
 def conv_dtypes(modules, fn):
@@ -1179,6 +1198,7 @@ def one_device_remainder(cfg, dev, card, scans, params, nets, res_a, feats_a,
         extract_frame_features, run_in)
     from caelo_tpu_torch.models.weights_io import build_models
     from caelo_tpu_torch.parallel.pipeline import make_sequence_processor
+    from caelo_tpu_torch.projection.spherical import ring_bins
     from caelo_tpu_torch.voxel import grid
 
     net, enc = nets
@@ -1299,10 +1319,9 @@ def one_device_remainder(cfg, dev, card, scans, params, nets, res_a, feats_a,
         vc, patch_method="knn"))
     pyr_c = grid.VoxelPyramid(*([x.cpu() for x in f] for f in pyr))
     kp_c, km_c = f32.key_pts.cpu(), f32.mask.cpu()
-    # the routes' integer inputs are the card's, on both devices: the float
-    # binning into voxels may differ between them (a division by a Python
-    # float on the card is a product with its reciprocal), which is
-    # counted here and is not the routes' work
+    # the card bins as the CPU: the pyramid, every point's voxel and the
+    # keypoints' voxels equal at each scale; the ring image's cells equal
+    # but where atan2 / asin differ at a bin edge
     pyr_cpu = grid.voxelize(torch.from_numpy(scans[0][0][:, :3]),
                             torch.from_numpy(scans[0][1]), vc)
 
@@ -1311,33 +1330,43 @@ def one_device_remainder(cfg, dev, card, scans, params, nets, res_a, feats_a,
         return (c[:, 0] << 42) | (c[:, 1] << 21) | c[:, 2]
 
     n_vox = [int((~torch.isin(voxel_keys(a.cpu(), ma.cpu()),
-                              voxel_keys(b, mb))).sum())
+                              voxel_keys(b, mb))).sum()
+                 + (~torch.isin(voxel_keys(b, mb),
+                                voxel_keys(a.cpu(), ma.cpu()))).sum())
              for a, ma, b, mb in zip(pyr.coords, pyr.masks, pyr_cpu.coords,
                                      pyr_cpu.masks)]
     n_valid = [int(m.sum()) for m in pyr.masks]
     half = torch.tensor([vc.visible_length, vc.visible_width,
-                         vc.visible_height], device=dev)
-    p0 = torch.from_numpy(scans[0][0][:, :3]).to(dev)
-    shifted = (p0 + half)[torch.from_numpy(scans[0][1]).to(dev)
-                          & (p0.abs() <= half).all(1)]
-    n_kv, n_pt, n_off = [], [], 0
-    for s, vs in enumerate(vc.voxel_sizes):
+                         vc.visible_height])
+    p0 = torch.from_numpy(scans[0][0][:, :3])
+    inside = p0[torch.from_numpy(scans[0][1]) & (p0.abs() <= half).all(1)]
+    n_kv, n_pt = [], []
+    for s in range(3):
         a, b = (grid.keypoint_voxels(f32.key_pts, s, vc).cpu(),
                 grid.keypoint_voxels(kp_c, s, vc))
         n_kv.append(int((a != b).any(1).sum()))
-        n_off += off_edge((kp_c + half.cpu()), a, b, vs)
-        a, b = torch.floor(shifted / vs).cpu(), torch.floor(shifted.cpu() / vs)
+        a, b = (grid.keypoint_voxels(inside.to(dev), s, vc).cpu(),
+                grid.keypoint_voxels(inside, s, vc))
         n_pt.append(int((a != b).any(1).sum()))
-        n_off += off_edge(shifted.cpu(), a, b, vs)
-    log(f"11b binning, card against CPU on frame 0: the card's voxels not "
-        f"in the CPU's per scale {n_vox} of {n_valid}, points binned "
-        f"otherwise {n_pt} of {len(shifted)}, keypoint voxels differing "
-        f"{n_kv} of {int(f32.mask.sum())}, differing coordinates farther "
-        f"than {BIN_ULPS} float32 units from a voxel edge {n_off} (limits: "
-        f"voxels <= {BIN_SHARE} of the valid ones, 0 off an edge)")
-    if n_off or any(n > BIN_SHARE * v for n, v in zip(n_vox, n_valid)):
-        raise AssertionError("11b the card bins voxels unlike the CPU beyond "
-                             "the reciprocal's rounding at a voxel edge")
+    sensor = cfg.sensor
+    pts0, msk0 = (torch.from_numpy(a) for a in scans[0])
+    ring_d = [x.cpu() for x in ring_bins(pts0.to(dev), msk0.to(dev),
+                                         sensor)[1:]]
+    ring_c = ring_bins(pts0, msk0, sensor)[1:]
+    differ = ((ring_d[0] != ring_c[0]) | (ring_d[1] != ring_c[1])
+              | (ring_d[2] != ring_c[2])) & msk0
+    n_ring, n_ring_off = int(differ.sum()), ring_off_edge(
+        scans[0][0], differ.numpy(), sensor)
+    log(f"11b binning, card against CPU on frame 0: voxels in one pyramid "
+        f"and not the other per scale {n_vox} of {n_valid}, points binned "
+        f"otherwise {n_pt} of {len(inside)}, keypoint voxels differing "
+        f"{n_kv} of {int(f32.mask.sum())} (limits: {BIN_SHARE} of each); "
+        f"ring-image cells differing {n_ring} of {int(msk0.sum())} points, "
+        f"{n_ring_off} of them off a bin edge (limit 0)")
+    if n_ring_off or any(n > BIN_SHARE * v for n, v in zip(
+            n_vox + n_pt + n_kv, n_valid + [len(inside)] * 3
+            + [int(f32.mask.sum())] * 3)):
+        raise AssertionError("11b the card bins points unlike the CPU")
     for s in range(3):
         kv = grid.keypoint_voxels(f32.key_pts, s, vc)
         out_w = grid._patches_one_scale_window(
@@ -1417,6 +1446,212 @@ def one_device_remainder(cfg, dev, card, scans, params, nets, res_a, feats_a,
         f"ms threaded {[round(ms, 1) for _, ms in runs[True]]}, synchronous "
         f"{[round(ms, 1) for _, ms in runs[False]]}; {card}")
     return launches
+
+
+def event_ms(fn):
+    """``(fn's result, ms of its device work)`` by CUDA events, after a
+    synchronise."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def warm_ms(fn):
+    """``(fn's result, ms of a first call, ms of a second call)`` by CUDA
+    events."""
+    _, first = event_ms(fn)
+    out, warm = event_ms(fn)
+    return out, first, warm
+
+
+def card_world(rank, world, inputs):
+    """Phase 12a, one rank of a real NCCL world on the card: every sharded
+    path at the default config against its one-device function.  Returns
+    the extractor's kernel launches, each path's ms (a first call, and a
+    second, warm, one) and the checks' values (CPU data)."""
+    import torch
+    import torch.distributed as dist
+    from caelo_tpu_torch import setup_device
+    from caelo_tpu_torch.backend.posegraph import (PoseGraph, optimize,
+                                                   optimize_sharded)
+    from caelo_tpu_torch.backend.refine_runner import (RefinementFeatures,
+                                                       make_batched_icp_fn)
+    from caelo_tpu_torch.backend.scancontext import sc_correlation_matrix
+    from caelo_tpu_torch.config import PipelineConfig
+    from caelo_tpu_torch.frontend.registration import extract_frame_features
+    from caelo_tpu_torch.models.patch_encoder import VoxelPatchAE
+    from caelo_tpu_torch.models.weights_io import (build_models,
+                                                   voxel_ae_params_to_torch)
+    from caelo_tpu_torch.parallel.mesh import make_mesh
+    from caelo_tpu_torch.parallel.pipeline import (
+        make_batched_feature_extractor, make_sharded_icp_fn,
+        make_sharded_sc_correlation, neighbor_pose_exchange)
+    from caelo_tpu_torch.training.train import (
+        adam, create_train_state, make_sharded_train_step, make_train_step,
+        patch_loss, shard_train_state)
+
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"12a the world's backend is "
+                             f"{dist.get_backend()}, not nccl")
+    dev = setup_device(f"cuda:{rank}")
+    cfg = PipelineConfig()
+    nets = build_models(inputs["respond"], inputs["encoder"], dev, cfg)
+    mesh = make_mesh()
+    out = {"ms": {}, "world": world, "backend": dist.get_backend()}
+    ms = out["ms"]
+
+    # the data-parallel extractor: K1 once and K2 three times per frame,
+    # the features those of the one-device extractor bit for bit
+    pts = torch.from_numpy(inputs["pts"]).to(dev)
+    mask = torch.from_numpy(inputs["mask"]).to(dev)
+    ex = make_batched_feature_extractor(mesh, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    feats, ms["extractor_first"] = event_ms(lambda: ex(*nets, pts, mask))
+    out["launches"] = launch_counts()
+    B = pts.shape[0]
+    if out["launches"] != {"saliency_map": B, "gather_planes": 3 * B}:
+        raise AssertionError(f"12a extractor launches {out['launches']} for "
+                             f"{B} frames")
+    _, ms["extractor"] = event_ms(lambda: ex(*nets, pts, mask, gather=True))
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    for b in range(B):
+        one = extract_frame_features(*nets, pts[b], mask[b], cfg)
+        if not all(torch.equal(a[b], o) for a, o in zip(feats, one)):
+            raise AssertionError(f"12a extractor frame {b} differs from "
+                                 "extract_frame_features")
+
+    # halo exchange: a world of one is its own left neighbour
+    poses = torch.from_numpy(inputs["poses"]).to(dev)
+    (total, left), ms["halo_first"], ms["halo"] = warm_ms(
+        lambda: neighbor_pose_exchange(mesh)(poses))
+    p64 = inputs["poses"].astype(np.float64)
+    want = float(((p64[1:] - p64[:-1]) ** 2).sum())
+    out["halo"] = (float(total), want)
+    if not (torch.equal(left, poses[-1])
+            and abs(float(total) - want) <= 1e-6 * want):
+        raise AssertionError(f"12a halo: total {float(total)} against "
+                             f"{want}, or left_last not the last pose")
+
+    # ScanContext correlation: the gathered matrices bit for bit
+    scs = torch.from_numpy(inputs["scs"]).to(dev)
+    (score, yaw), ms["sc_correlation_first"], ms["sc_correlation"] = warm_ms(
+        lambda: make_sharded_sc_correlation(mesh)(scs, gather=True))
+    s1, y1 = sc_correlation_matrix(scs)
+    if not (torch.equal(score, s1) and torch.equal(yaw, y1)):
+        raise AssertionError("12a sharded ScanContext correlation differs")
+
+    # the edge-sharded pose graph against the one-device solve
+    R0, t0 = (torch.from_numpy(x).to(dev) for x in inputs["R0t0"])
+    graph = PoseGraph(*(torch.from_numpy(inputs["graph"][f]).to(dev)
+                        for f in PoseGraph._fields))
+    (R, t, cost), ms["posegraph_first"], ms["posegraph"] = warm_ms(
+        lambda: optimize_sharded(mesh, len(R0), n_iters=4, cg_iters=40)(
+            R0, t0, graph))
+    _, t1, c1 = optimize(R0, t0, graph, n_iters=4, cg_iters=40)
+    out["posegraph"] = (float((t - t1).abs().max()), float(cost), float(c1))
+    if out["posegraph"][0] > 1e-2 or abs(float(cost) - float(c1)) > 1e-6:
+        raise AssertionError(f"12a sharded pose graph {out['posegraph']}")
+
+    # span-sharded ICP on a 16-span call, bit for bit the one-device call
+    ref = RefinementFeatures(*(torch.from_numpy(x).to(dev)
+                               for x in inputs["ref"]))
+    spans = inputs["spans"]
+    n_spans = len(spans[0])
+    sharded = make_sharded_icp_fn(ref, mesh, cfg, spans_per_device=n_spans)
+    got, ms["icp_first"], ms["icp"] = warm_ms(lambda: sharded(*spans))
+    one = make_batched_icp_fn(ref, cfg, chunk=n_spans)(*spans)
+    if not all(np.array_equal(a, b) for a, b in zip(got, one)):
+        raise AssertionError("12a sharded ICP differs from the one-device "
+                             "call")
+    out["icp_successes"] = int(got[2].sum())
+
+    # one DP and one TP patch-AE step at the trainer's batch of 256
+    batch = torch.from_numpy(inputs["ae_batch"]).to(dev)
+    state_dict = voxel_ae_params_to_torch(inputs["ae"])
+
+    def fresh():
+        model = VoxelPatchAE().to(dev)
+        model.load_state_dict(state_dict)
+        return create_train_state(model, adam(model.parameters()))
+
+    _, want = make_train_step(patch_loss)(fresh(), batch)
+    out["losses"] = {"one_device": float(want)}
+    for name, tp in (("dp", False), ("tp", True)):
+        step, _ = make_sharded_train_step(patch_loss, mesh)
+        state = shard_train_state(fresh(), mesh, tensor_parallel=tp)
+        (_, loss), ms[f"{name}_step_first"] = event_ms(
+            lambda: step(state, batch))
+        _, ms[f"{name}_step"] = event_ms(lambda: step(state, batch))
+        out["losses"][name] = float(loss)
+        if abs(float(loss) - float(want)) > 1e-5 * abs(float(want)):
+            raise AssertionError(f"12a {name} step loss {float(loss)} "
+                                 f"against {float(want)}")
+    return out
+
+
+def multi_gpu(cfg, card, scans, params, ref, icp_rels):
+    """Phase 12: (a) a real NCCL world of one rank on the card running
+    every sharded path (``card_world``) and ``cli scaling``; (b) the
+    4-rank dry run on gloo CPU ranks.  Returns 12a's kernel launches."""
+    import torch
+    from caelo_tpu_torch import cli
+    from caelo_tpu_torch.parallel.dryrun import (dryrun_multigpu,
+                                                 square_graph)
+    from caelo_tpu_torch.parallel.mesh import run_ranks
+    from caelo_tpu_torch.models.weights_io import random_ae_params
+
+    rng = np.random.default_rng(12)
+    R0, t0, graph = square_graph(1)
+    relRs, relTs = icp_rels
+    inputs = dict(
+        respond=params[0], encoder=params[1],
+        pts=np.stack([p for p, _ in scans[:WINDOW]]),
+        mask=np.stack([m for _, m in scans[:WINDOW]]),
+        poses=np.cumsum(rng.normal(0, 1, (WINDOW, 12)), 0).astype(np.float32),
+        scs=rng.uniform(0, 8, (88, 16, 64)).astype(np.float32),
+        R0t0=(R0, t0), graph=graph,
+        ref=tuple(x.cpu().numpy() for x in ref),
+        spans=(np.arange(WINDOW, dtype=np.int32),
+               np.arange(1, WINDOW + 1, dtype=np.int32), relRs, relTs),
+        ae=random_ae_params(0)[1],
+        ae_batch=(rng.uniform(size=(256, 16, 16, 16)) < 0.2
+                  ).astype(np.float32))
+    torch.cuda.empty_cache()
+    t0_s = time.perf_counter()
+    out = run_ranks(card_world, 1, args=(inputs,), device_type="cuda")[0]
+    log(f"12a NCCL world of {out['world']} ({out['backend']}): extractor "
+        f"on {WINDOW} frames at the default config bit-identical to "
+        f"extract_frame_features, launches {out['launches']}; ms (CUDA "
+        f"events) {json.dumps({k: round(v, 3) for k, v in out['ms'].items()})}"
+        f"; extractor {WINDOW / out['ms']['extractor'] * 1e3:.3f} frames/s "
+        f"warm, peak device memory {out['peak_mib']:.1f} MiB; halo total "
+        f"{out['halo'][0]:.6f} (float64 {out['halo'][1]:.6f}); pose graph "
+        f"max|dt| {out['posegraph'][0]:.2e}, cost {out['posegraph'][1]:.6e} "
+        f"(one device {out['posegraph'][2]:.6e}); ICP {out['icp_successes']}"
+        f"/{WINDOW} spans solved, bit-identical; patch-AE losses "
+        f"{out['losses']}; {time.perf_counter() - t0_s:.1f} s with the "
+        f"spawn; {card}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["scaling"])
+    sweep = json.loads(buf.getvalue())["sweep"]
+    log(f"12a cli scaling: {json.dumps(sweep)}; {card}")
+    if [r["devices"] for r in sweep] != [torch.cuda.device_count()] or not (
+            sweep[0]["frames_per_s"] > 0):
+        raise AssertionError(f"12a cli scaling swept {sweep}")
+    t0_s = time.perf_counter()
+    summary = dryrun_multigpu(4)
+    log(f"12b dryrun_multigpu(4) on gloo CPU ranks: {json.dumps(summary)} "
+        f"({time.perf_counter() - t0_s:.1f} s)")
+    return out["launches"]
 
 
 def timed_ms(fn, reps):
@@ -1848,6 +2083,9 @@ def main():
         add_launches(launches, one_device_remainder(
             cfg, dev, smi, scans, (respond_np, encoder_np),
             (respond_net, encoder), res_a, feats_a, (pts_w, msk_w), tmp))
+    # ---- 12. multi-GPU: a NCCL world on the card, and 4 gloo CPU ranks
+    add_launches(launches, multi_gpu(cfg, smi, scans, (respond_np, encoder_np),
+                                     ref, (relRs, relTs)))
 
     kernels = [
         {"name": "saliency_map", "route": "cuda",

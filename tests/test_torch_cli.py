@@ -3,9 +3,10 @@ JAX package: KITTI scans, calibration, the native loader and its numpy
 fallback, the scan caches, ``run_odometry`` fed JAX's RANSAC draws, the
 generator input and ``progress`` of the drivers, the ``evaluate`` and
 ``refine`` commands on the same files, ``selftest`` and ``full`` on the CPU,
-the preprocess -> refine -> loop chain, and the commands that are not
-ported yet (``scaling``, ``bench``).  ``odometry --keypoints`` with the
-other sources is in ``tests/test_torch_cli_keypoints.py``.
+the preprocess -> refine -> loop chain, and the command that is not
+ported yet (``bench``).  ``odometry --keypoints`` with the other sources
+is in ``tests/test_torch_cli_keypoints.py``; ``scaling`` in
+``tests/test_torch_multigpu_train.py``.
 
 Tolerances: scans, calibration, scan caches, ``evaluate``'s JSON and the
 de-jumped poses bit-equal; ``run_odometry`` with JAX's draws: the same
@@ -423,7 +424,6 @@ def test_cli_stage_chain_on_cpu(kitti_tree, tmp_path, random_weights,
 
 
 @pytest.mark.parametrize("argv,slice_name", [
-    (["scaling"], "slice H"),
     (["bench"], "benchmark PR"),
 ])
 def test_unported_commands_raise_naming_their_slice(argv, slice_name):

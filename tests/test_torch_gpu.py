@@ -4,8 +4,10 @@ with no occupied neighbour, all-masked keypoints, clamped slots), one
 frame's features and registration, the batched hybrid ICP, the burst map
 ICP, a full-width train step of each auto-encoder and the patch trainer's
 data path, the keypoint baselines and ``features_from_keypoints`` (K2 at
-each scale), on the card against the CPU path; and ``cli selftest`` on the
-card.  Every test skips without a CUDA device.
+each scale), on the card against the CPU path; the binning division on
+the card against the CPU's at bin edges; every sharded path in a NCCL
+world of one rank (``dryrun_multigpu(1, "cuda")``); and ``cli selftest``
+on the card.  Every test skips without a CUDA device.
 
 Imports torch and the port only, so the file also runs where JAX is absent
 (the repo's conftest imports JAX, hence ``--noconftest``):
@@ -18,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from caelo_tpu_torch import setup_device
+from caelo_tpu_torch import divide, setup_device
 from caelo_tpu_torch.backend.burst import burst_map_icp
 from caelo_tpu_torch.backend.icp import icp_hybrid
 from caelo_tpu_torch.config import (IcpConfig, KeypointConfig, SensorConfig,
@@ -513,3 +515,31 @@ def test_cli_selftest_on_card(cuda, capsys):
     assert cli.main(["selftest"]) == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["success"] and out["device"].startswith("cuda")
+
+
+@pytest.mark.parametrize("d", [0.02, 0.16, 0.64, np.radians(0.2),
+                               np.radians(26.9) / 63, 80.0, 2 * np.pi])
+def test_divide_on_card_bins_as_cpu(cuda, rng, d):
+    """10^5 float32 coordinates within 2 units of a bin edge: the card's
+    quotient (a 0-d divisor on the card: a division, not a product with
+    the reciprocal) equals the CPU's bit for bit."""
+    x = (rng.integers(-5000, 5000, 100_000) * np.float32(d)).astype(np.float32)
+    for _ in range(2):
+        step = rng.integers(-1, 2, x.shape)
+        x = np.where(step > 0, np.nextafter(x, np.float32(np.inf)),
+                     np.where(step < 0, np.nextafter(x, np.float32(-np.inf)),
+                              x)).astype(np.float32)
+    xt = torch.from_numpy(x)
+    np.testing.assert_array_equal(divide(xt.to(cuda), d).cpu().numpy(),
+                                  divide(xt, d).numpy())
+
+
+def test_sharded_paths_in_a_nccl_world_of_one(cuda):
+    """``dryrun_multigpu(1, "cuda")``: one spawned rank in a NCCL world
+    runs every sharded path on the card at the tiny config, each checked
+    against its one-device function (a failed check raises)."""
+    from caelo_tpu_torch.parallel.dryrun import dryrun_multigpu
+
+    out = dryrun_multigpu(1, device_type="cuda")
+    assert out["ranks"] == 1 and out["window_successes"] > 0
+    assert np.isfinite(out["sharded_gn_cost"])
