@@ -10,7 +10,8 @@ is read): Keras stores the same layout as Flax, so reading is a renaming.
 
 Checkpoints are ``torch.save`` of a state dict under ``<path>/<step>/``
 (the JAX package writes orbax checkpoints there, which the port does not
-read).
+read); ``*_ae_params_from_torch`` carry a trained auto-encoder's state dict
+back to Flax-layout numpy params, which the JAX package runs.
 """
 from __future__ import annotations
 
@@ -91,6 +92,41 @@ def voxel_ae_params_to_torch(params) -> dict:
                             ("conv2_1", _conv), ("conv2_2", _conv),
                             ("out", _conv)]))
     return out
+
+
+def _to_flax(state_dict, layers) -> dict:
+    """The Flax ``{name: {"kernel", "bias"}}`` numpy layers of a state
+    dict, ``layers`` ``(name, is_conv)`` pairs: the converters' inverses
+    (OI... -> ...IO, Linear (out, in) -> Dense (in, out))."""
+    out = {}
+    for name, is_conv in layers:
+        w = state_dict[f"{name}.weight"].detach().cpu().numpy()
+        k = (w.transpose(*range(2, w.ndim), 1, 0) if is_conv else w.T)
+        out[name] = {"kernel": np.ascontiguousarray(k),
+                     "bias": state_dict[f"{name}.bias"].detach().cpu().numpy()}
+    return out
+
+
+def spherical_ae_params_from_torch(state_dict) -> dict:
+    """``SphericalRingAE`` state dict -> Flax ``SphericalRingAE`` params
+    (numpy), the inverse of ``spherical_ae_params_to_torch``."""
+    p = _to_flax(state_dict, [(n, True) for n in
+                              ("conv1_2", "conv2_2", "conv2_3", "out")])
+    p["respond"] = _to_flax(_submodule(state_dict, "respond"),
+                            [("conv1_1", True), ("conv1_1_2", True)])
+    return {"params": p}
+
+
+def voxel_ae_params_from_torch(state_dict) -> dict:
+    """``VoxelPatchAE`` state dict -> Flax ``VoxelPatchAE`` params (numpy),
+    the inverse of ``voxel_ae_params_to_torch``."""
+    p = _to_flax(state_dict, [("fn3", False), ("fn4", False),
+                              ("conv2_1", True), ("conv2_2", True),
+                              ("out", True)])
+    p["encoder"] = _to_flax(_submodule(state_dict, "encoder"), [
+        ("conv1", True), ("conv2", True), ("conv3", True), ("fn1", False),
+        ("fn2", False)])
+    return {"params": p}
 
 
 def _submodule(state_dict, name: str) -> dict:
@@ -342,3 +378,13 @@ def load_checkpoint(path: str, step: int = 0) -> dict:
     return torch.load(os.path.join(os.path.abspath(path), str(step),
                                    "state_dict.pt"),
                       map_location="cpu", weights_only=True)
+
+
+def load_trained(path: str):
+    """``(respond_sd, encoder_sd)``: the respond layer and patch encoder of
+    the auto-encoders ``train_from_scratch_study`` saved under ``path``
+    (``<path>/respond_ae``, ``<path>/patch_ae``)."""
+    return (respond_params_from_ae(load_checkpoint(
+                os.path.join(path, "respond_ae"))),
+            encoder_params_from_ae(load_checkpoint(
+                os.path.join(path, "patch_ae"))))

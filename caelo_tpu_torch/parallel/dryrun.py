@@ -1,12 +1,14 @@
 """Multi-rank dry run of every sharded path (the port's counterpart of
 ``__graft_entry__.py::dryrun_multichip``).
 
-    python -m caelo_tpu_torch.parallel.dryrun 4     # 4 gloo ranks on the CPU
+    python -m caelo_tpu_torch.parallel.dryrun 4     # 4 NCCL ranks, 4 cards
+    python -m caelo_tpu_torch.parallel.dryrun 4 --platform cpu  # 4 gloo ranks
 
-``dryrun_multigpu(n_ranks)`` spawns ``n_ranks`` ranks (gloo on the CPU by
-default) and runs, on ``tiny_test_config`` inputs made from a seed with
-numpy (``dryrun_inputs``), each sharded path once, checking it in rank 0
-against the port's one-device function:
+``dryrun_multigpu(n_ranks)`` spawns ``n_ranks`` ranks (NCCL, one a CUDA
+device, by default; ``device_type="cpu"``: gloo ranks on the CPU) and
+runs, on ``tiny_test_config`` inputs made from a seed with numpy
+(``dryrun_inputs``), each sharded path once, checking it in rank 0 against
+the port's one-device function:
 
 * ``train``: two data-parallel patch-AE steps on a flat mesh, and a DP +
   TP step (the dense layers over ``"model"`` when the world splits in two)
@@ -142,7 +144,7 @@ def icp_case(cfg, n_frames: int = 8, seed: int = 3):
     return feats, np.stack(poses)
 
 
-def dryrun_inputs(n_ranks: int, device_type: str = "cpu", seed: int = 0
+def dryrun_inputs(n_ranks: int, device_type: str = "cuda", seed: int = 0
                   ) -> dict:
     """The numpy inputs of every path for a world of ``n_ranks`` on
     ``device_type`` (one ScanContext row block a rank)."""
@@ -380,7 +382,7 @@ def _sc(inputs, world, rank, dev):
 
 
 def sharded_paths(rank: int, world: int, inputs: dict, paths=PATHS,
-                  device_type: str = "cpu") -> dict:
+                  device_type: str = "cuda") -> dict:
     """One rank of the dry run: each of ``paths`` on ``inputs``
     (``dryrun_inputs``), checked in rank 0; returns each path's gathered
     result (numpy) and its seconds on this rank."""
@@ -406,7 +408,7 @@ def sharded_paths(rank: int, world: int, inputs: dict, paths=PATHS,
     return out
 
 
-def dryrun_multigpu(n_ranks: int, device_type: str = "cpu") -> dict:
+def dryrun_multigpu(n_ranks: int, device_type: str = "cuda") -> dict:
     """Spawn ``n_ranks`` ranks and run every sharded path once, each
     checked in rank 0 against its one-device function (a failed check
     raises); returns rank 0's summary."""
@@ -429,7 +431,19 @@ def dryrun_multigpu(n_ranks: int, device_type: str = "cpu") -> dict:
 
 
 if __name__ == "__main__":
+    import argparse
     import json
 
-    print(json.dumps(dryrun_multigpu(int(sys.argv[1]) if len(sys.argv) > 1
-                                     else 4)))
+    from ..cli import _add_common
+
+    ap = argparse.ArgumentParser(description="Run every sharded path on "
+                                 "N ranks, each checked in rank 0.")
+    ap.add_argument("ranks", type=int, nargs="?", default=4)
+    _add_common(ap)     # cuda: NCCL ranks, one a card; cpu: gloo ranks
+    args = ap.parse_args()
+    device_type = torch.device(args.platform).type
+    if device_type == "cuda" and torch.cuda.device_count() < args.ranks:
+        sys.exit(f"dryrun: {args.ranks} NCCL ranks need {args.ranks} CUDA "
+                 f"devices, found {torch.cuda.device_count()}; pass "
+                 "--platform cpu for gloo ranks on the CPU")
+    print(json.dumps(dryrun_multigpu(args.ranks, device_type)))

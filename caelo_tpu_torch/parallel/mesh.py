@@ -157,7 +157,7 @@ def initialize_distributed(coordinator: str | None = None,
                             world_size=num_processes, rank=process_id)
 
 
-def run_ranks(fn, n_ranks: int, args=(), device_type: str = "cpu") -> list:
+def run_ranks(fn, n_ranks: int, args=(), device_type: str = "cuda") -> list:
     """Spawn ``n_ranks`` processes, each one rank of a fresh world (NCCL on
     CUDA device ``rank``, or gloo on the CPU with one torch thread a rank,
     as the ranks share the host's cores) that rendezvous through a file in

@@ -96,15 +96,30 @@ Phases (each raises on failure; the script then exits nonzero):
    within 1e-6 of ``optimize``), one DP and one TP patch-AE step at the
    batch of 256 (loss within rtol 1e-5 of the one-device step), each
    path's ms by CUDA events, the extractor's frames/s and peak memory;
-   then ``cli scaling`` (the sweep ``[1]``); (b) ``dryrun_multigpu(4)``:
-   4 gloo ranks on the host's CPU run every sharded path with cross-rank
-   halos, row blocks and TP shards, each checked in rank 0.
+   then ``cli scaling`` (the sweep ``[1]``); (b) ``dryrun_multigpu(4,
+   "cpu")``: 4 gloo ranks on the host's CPU run every sharded path with
+   cross-rank halos, row blocks and TP shards, each checked in rank 0;
+13. the example drivers (``caelo_tpu_torch/examples``) on the card through
+   their ``run`` seams: (a) ``train_from_scratch_study`` trains both AEs
+   for 20 steps each on phase 7's circuit written as a scan cache
+   (``--hard-caches``) and scores them on 2 easy and 2 ray-cast pairs:
+   ``study.json`` with the JAX study's fields, finite losses, the patch
+   AE's loss lower at the end than at the start, each loop's data and step
+   ms; (b) ``hard_benchmark --frames 88 --weights`` with those weights:
+   every field of the JAX script's JSON, finite, the exit code its
+   ``gates_pass`` (not asserted to pass), K1 and K2 on every frame, the
+   gate lines and pipeline seconds; (c) ``register_pair_demo``,
+   ``loop_closure_demo`` and ``kitti_golden`` (phase 9's tree) with the
+   ``.h5`` loaders answering (a)'s weights at the relu / linear encoder:
+   finite errors and ATEs (the demos' own checks and the golden verdict
+   are logged, not asserted), and ``collect_validation`` over (b)'s JSON:
+   one row of the JAX script's keys.
 
 Kernel launches are counted on the main path only (runs A, 6a, 6d, 7, the
 trainers and the window of phase 8, the commands of phases 9 and 10b, the
-windows and the unsorted-pyramid query of phase 11, and 12a's extractor in
-its rank, whose counts come back to this process), each count set to 0
-just before its run and read just after.  Prints a
+windows and the unsorted-pyramid query of phase 11, 12a's extractor in
+its rank, whose counts come back to this process, and phase 13's drivers),
+each count set to 0 just before its run and read just after.  Prints a
 ``{"kernels": [...]}`` JSON line, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Without a CUDA device
 it fails; it never falls back to the CPU.
@@ -132,6 +147,19 @@ CIRCUIT = dict(n_frames=88, seed=0, side=30.0, yaw_rate_deg=6.0, n_cars=3,
 TRAIN_STEPS = {"respond": 2, "patch": 6}
 FIXED_STEPS, FIXED_LR = 20, 3e-3
 LOSS_MARGIN = {"respond": 0.95, "patch": 0.8}
+# phase 13: training steps of each AE in the study, the hard benchmark's
+# frames, and the JSON fields of examples/hard_benchmark.py:195-225 and of
+# the study's pair summaries
+STUDY_STEPS = 20
+HB_FRAMES = 88
+HB_FIELDS = ("frames", "window", "pipeline_seed", "candidate_source",
+             "rre_deg", "rte_m", "rre_p50", "rre_p90", "rre_max", "rte_p50",
+             "rte_p90", "rte_max", "success_rate", "pair_success_frontend",
+             "ate_raw_m", "ate_dejumped_m", "ate_refined_m", "ate_final_m",
+             "n_loop_closures", "dejumped", "stage_seconds",
+             "per_pair_rre_deg", "per_pair_rte_m", "gates_pass")
+STUDY_FIELDS = {"tag", "n_pairs", "success_rate", "rot_err_deg_mean",
+                "t_err_m_mean", "inlier_ratio_mean"}
 REPS = 50            # kernel timing launches per arm
 STAGE_REPS = 20      # per-frame stage timings per arm
 WINDOW_REPS = 3      # warm window timings
@@ -496,7 +524,8 @@ def add_launches(total, more):
 def whole_pipeline(cfg, respond_net, encoder, card):
     """Phase 7: run_full_pipeline with every stage on the CI circuit with a
     burst.  Every line with a time ends with ``card`` (the nvidia-smi
-    name and power limit).  Returns the kernel launch counts of the run."""
+    name and power limit).  Returns the kernel launch counts of the run
+    and the circuit, ``(scans, gt)``."""
     import torch
     import caelo_tpu_torch.backend.burst as burst_mod
     import caelo_tpu_torch.pipeline as pipe_mod
@@ -591,26 +620,21 @@ def whole_pipeline(cfg, respond_net, encoder, card):
     if launches["saliency_map"] < n or launches["gather_planes"] < 3 * n:
         raise AssertionError("run_full_pipeline did not run K1 and K2 per "
                              "frame")
-    return launches
+    return launches, (scans, gt)
 
 
 def run_cli(argv, card):
-    """``cli.main(argv)`` in this process, synchronised; echoes and returns
-    its standard output and its ms, and fails on a nonzero exit."""
+    """``cli.main(argv)`` in this process, synchronised; echoes its output
+    and errors, returns its standard output and its ms, and fails on a
+    nonzero exit."""
     import torch
     from caelo_tpu_torch import cli
 
-    buf = io.StringIO()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        rc = cli.main(argv)
+    rc, out, _ = echo(cli.main, argv)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    out = buf.getvalue()
-    for line in out.replace("\r", "\n").splitlines():
-        if line.strip():
-            log(f"  | {line}")
     log(f"cli {argv[0]}: exit {rc}, {ms:.1f} ms; {card}")
     if rc != 0:
         raise AssertionError(f"cli {' '.join(argv)} exited {rc}")
@@ -1648,10 +1672,188 @@ def multi_gpu(cfg, card, scans, params, ref, icp_rels):
             sweep[0]["frames_per_s"] > 0):
         raise AssertionError(f"12a cli scaling swept {sweep}")
     t0_s = time.perf_counter()
-    summary = dryrun_multigpu(4)
-    log(f"12b dryrun_multigpu(4) on gloo CPU ranks: {json.dumps(summary)} "
+    summary = dryrun_multigpu(4, "cpu")
+    log(f"12b dryrun_multigpu(4, \"cpu\") on gloo CPU ranks: "
+        f"{json.dumps(summary)} "
         f"({time.perf_counter() - t0_s:.1f} s)")
     return out["launches"]
+
+
+def echo(fn, *args, show_out=True):
+    """``fn(*args)`` with its standard output and error captured and
+    echoed (its output only with ``show_out``); returns ``(result, stdout,
+    stderr)``."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        result = fn(*args)
+    for text in (out.getvalue() if show_out else "", err.getvalue()):
+        for line in text.replace("\r", "\n").splitlines():
+            if line.strip():
+                log(f"  | {line}")
+    return result, out.getvalue(), err.getvalue()
+
+
+def finite_numbers(pattern, text, what):
+    """The numbers ``pattern``'s groups read in ``text``; each must be
+    finite."""
+    import re
+
+    m = re.search(pattern, text)
+    if m is None:
+        raise AssertionError(f"{what}: no line matches {pattern!r}")
+    vals = [float(v) for v in m.groups()]
+    if not np.isfinite(vals).all():
+        raise AssertionError(f"{what}: {vals}")
+    return vals
+
+
+def example_drivers(cfg, card, tmp, circuit):
+    """Phase 13: the example drivers of ``caelo_tpu_torch/examples`` on the
+    card through their ``run`` seams.  (a) the study trains both AEs on
+    phase 7's circuit written as a scan cache and scores them; (b) the hard
+    benchmark gates the full pipeline with those weights; (c) the pair and
+    loop demos and KITTI golden (on phase 9's tree) with the ``.h5``
+    loaders answering the trained weights, and collect_validation over
+    (b)'s JSON.  Returns the launch counts of all three."""
+    import argparse
+    import torch
+    from caelo_tpu_torch.examples import (collect_validation, hard_benchmark,
+                                          kitti_golden, loop_closure_demo,
+                                          register_pair_demo)
+    from caelo_tpu_torch.examples import train_from_scratch_study as study
+    from caelo_tpu_torch.models import weights_io
+
+    launches = {"saliency_map": 0, "gather_planes": 0}
+    # ---- (a) the study on the circuit's cache
+    scans, gt = circuit
+    cache = os.path.join(tmp, "circuit.npz")
+    np.savez(cache, pts=np.stack([p for p, _ in scans]),
+             msk=np.stack([m for _, m in scans]), gt=gt)
+    out = os.path.join(tmp, "scratch")
+    argv = ["--hard-caches", cache, "--steps2d", str(STUDY_STEPS),
+            "--steps3d", str(STUDY_STEPS), "--pairs", "2", "--hard-pairs",
+            "2", "--out", out]
+    reset_launches()
+    t0 = time.perf_counter()
+    rc, _, _ = echo(study.run, study.parser().parse_args(argv), cfg)
+    used = launch_counts()
+    add_launches(launches, used)
+    with open(os.path.join(out, "study.json")) as f:
+        res = json.load(f)
+    log(f"13a study {' '.join(argv)}: exit {rc}, "
+        f"{time.perf_counter() - t0:.1f} s, launches {used}; study.json "
+        f"{json.dumps(res)}; {card}")
+    losses = res["loss2d"] + res["loss3d"]
+    if not (rc == 0 and set(res) == {"results", "loss2d", "loss3d"}
+            and [r["tag"] for r in res["results"]]
+            == ["trained-from-scratch/easy", "trained-from-scratch/hard"]
+            and all(set(r) == STUDY_FIELDS for r in res["results"])
+            and np.isfinite(losses).all()):
+        raise AssertionError(f"13a study.json {res}")
+    if not res["loss3d"][1] < res["loss3d"][0]:
+        raise AssertionError("13a the patch AE's loss did not fall")
+    if used["saliency_map"] < 8 or used["gather_planes"] < 24:
+        raise AssertionError("13a the study's evaluation did not run K1 "
+                             "and K2 per frame")
+
+    # ---- (b) the hard benchmark with the trained weights
+    runs = os.path.join(tmp, "hb_runs")
+    os.makedirs(runs)
+    json_out = os.path.join(runs, "hb_clean_w64.json")
+    argv = ["--frames", str(HB_FRAMES), "--weights", out, "--json-out",
+            json_out]
+    reset_launches()
+    t0 = time.perf_counter()
+    rc, _, _ = echo(hard_benchmark.run,
+                    hard_benchmark.parser().parse_args(argv), cfg,
+                    show_out=False)          # the JSON, read from its file
+    used = launch_counts()
+    add_launches(launches, used)
+    with open(json_out) as f:
+        hb = json.load(f)
+    log(f"13b hard_benchmark {' '.join(argv[:4])}: exit {rc}, "
+        f"{time.perf_counter() - t0:.1f} s with the ray cast, launches "
+        f"{used}; gates_pass {hb['gates_pass']}; the loop stage runs only "
+        f"past run_full_pipeline's min_loop_gap of 100 frames; {card}")
+    missing = [k for k in HB_FIELDS if k not in hb]
+    if hb["n_loop_closures"] > 0:
+        missing += [k for k in ("loop_precision", "loop_recall",
+                                "loop_edges") if k not in hb]
+    bad = [k for k, v in hb.items() if isinstance(v, float)
+           and not np.isfinite(v)]
+    bad += [k for k in ("per_pair_rre_deg", "per_pair_rte_m")
+            if not np.isfinite(hb[k]).all()]
+    if missing or bad or rc != (0 if hb["gates_pass"] else 1):
+        raise AssertionError(f"13b fields missing {missing}, not finite "
+                             f"{bad}, exit {rc}, gates {hb['gates_pass']}")
+    if not {"frontend", "dejump", "refine"} <= set(hb["stage_seconds"]):
+        raise AssertionError(f"13b stage_seconds {hb['stage_seconds']}")
+    if (used["saliency_map"] < HB_FRAMES
+            or used["gather_planes"] < 3 * HB_FRAMES):
+        raise AssertionError("13b the pipeline did not run K1 and K2 per "
+                             "frame")
+
+    # ---- (c) the demos and KITTI golden, the .h5 loaders answering (a)'s
+    # trained weights (relu / linear encoder), and collect_validation
+    sph = weights_io.spherical_ae_params_from_torch(
+        weights_io.load_checkpoint(os.path.join(out, "respond_ae")))
+    vox = weights_io.voxel_ae_params_from_torch(
+        weights_io.load_checkpoint(os.path.join(out, "patch_ae")))
+    rp, ep = ({"params": sph["params"]["respond"]},
+              {"params": vox["params"]["encoder"]})
+    cfg_t = dataclasses.replace(cfg, encoder_activation="relu",
+                                encoder_code_activation="linear")
+    loaders = (weights_io.load_respond_layer_params,
+               weights_io.load_patch_encoder_params)
+    weights_io.load_respond_layer_params = lambda path=None: rp
+    weights_io.load_patch_encoder_params = lambda path=None: ep
+    card_args = argparse.Namespace(platform="cuda")
+    golden = os.path.join(tmp, "KITTI_GOLDEN.json")
+    reset_launches()
+    try:
+        t0 = time.perf_counter()
+        rc, text, _ = echo(register_pair_demo.run, card_args, cfg_t)
+        finite_numbers(r"rotation error: (\S+) deg\s+translation error: "
+                       r"(\S+) m", text, "13c register_pair_demo")
+        log(f"13c register_pair_demo: exit {rc} (its own checks; not "
+            f"asserted at {STUDY_STEPS} training steps), "
+            f"{time.perf_counter() - t0:.1f} s; {card}")
+        t0 = time.perf_counter()
+        with contextlib.chdir(tmp):
+            rc, text, _ = echo(loop_closure_demo.run, card_args, cfg_t)
+        finite_numbers(r"ATE raw:\s+(\S+) m rmse.*\nATE final:\s+(\S+) "
+                       r"m rmse", text, "13c loop_closure_demo")
+        log(f"13c loop_closure_demo: exit {rc} (its own check; not "
+            f"asserted), {time.perf_counter() - t0:.1f} s; {card}")
+        t0 = time.perf_counter()
+        rc, _, _ = echo(kitti_golden.run, kitti_golden.parser().parse_args(
+            ["--data", os.path.join(tmp, "kitti"), "--seqs", "00",
+             "--out", os.path.join(tmp, "golden"), "--json-out", golden]),
+            cfg_t)
+    finally:
+        (weights_io.load_respond_layer_params,
+         weights_io.load_patch_encoder_params) = loaders
+    used = launch_counts()
+    add_launches(launches, used)
+    with open(golden) as f:
+        kg = json.load(f)
+    agg = kg["aggregate"]
+    log(f"13c kitti_golden on phase 9's tree: exit {rc} (the verdict of a "
+        f"synthetic tree means nothing), aggregate {json.dumps(agg)}, "
+        f"{time.perf_counter() - t0:.1f} s; launches of 13c {used}; {card}")
+    if not (kg["per_seq"]["00"]["frames"] == N_SCANS
+            and np.isfinite(list(agg.values())).all()):
+        raise AssertionError(f"13c kitti_golden {kg}")
+    if (used["saliency_map"] < 2 + 41 + N_SCANS
+            or used["gather_planes"] < 3 * (2 + 41 + N_SCANS)):
+        raise AssertionError("13c the demos did not run K1 and K2 per frame")
+    rows = collect_validation.collect(runs)
+    row, = rows["clean_w64"]
+    want = [k for k in collect_validation.KEYS if k in hb] + ["stage_s"]
+    log(f"13c collect_validation: clean_w64 row {json.dumps(row)}")
+    if list(row) != want:
+        raise AssertionError(f"13c collect_validation row keys {list(row)}")
+    return launches
 
 
 def timed_ms(fn, reps):
@@ -2065,7 +2267,7 @@ def main():
         f"memory of phase 6: "
         f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB")
     # ---- 7. the whole pipeline
-    launches_7 = whole_pipeline(cfg, respond_net, encoder, smi)
+    launches_7, circuit = whole_pipeline(cfg, respond_net, encoder, smi)
     for name in launches:
         launches[name] += (launches_r[name] + launches_f[name]
                            + launches_7[name])
@@ -2083,6 +2285,9 @@ def main():
         add_launches(launches, one_device_remainder(
             cfg, dev, smi, scans, (respond_np, encoder_np),
             (respond_net, encoder), res_a, feats_a, (pts_w, msk_w), tmp))
+        # ---- 13. the example drivers: the study on phase 7's circuit, the
+        # hard benchmark with its weights, the demos, KITTI golden
+        add_launches(launches, example_drivers(cfg, smi, tmp, circuit))
     # ---- 12. multi-GPU: a NCCL world on the card, and 4 gloo CPU ranks
     add_launches(launches, multi_gpu(cfg, smi, scans, (respond_np, encoder_np),
                                      ref, (relRs, relTs)))

@@ -6,8 +6,9 @@ ICP, a full-width train step of each auto-encoder and the patch trainer's
 data path, the keypoint baselines and ``features_from_keypoints`` (K2 at
 each scale), on the card against the CPU path; the binning division on
 the card against the CPU's at bin edges; every sharded path in a NCCL
-world of one rank (``dryrun_multigpu(1, "cuda")``); and ``cli selftest``
-on the card.  Every test skips without a CUDA device.
+world of one rank (``dryrun_multigpu(1, "cuda")``); ``cli selftest``
+on the card; and ``examples.hard_benchmark`` on 12 ray-cast frames on the
+card.  Every test skips without a CUDA device.
 
 Imports torch and the port only, so the file also runs where JAX is absent
 (the repo's conftest imports JAX, hence ``--noconftest``):
@@ -543,3 +544,32 @@ def test_sharded_paths_in_a_nccl_world_of_one(cuda):
     out = dryrun_multigpu(1, device_type="cuda")
     assert out["ranks"] == 1 and out["window_successes"] > 0
     assert np.isfinite(out["sharded_gn_cost"])
+
+
+def test_hard_benchmark_on_card(cuda, monkeypatch, tmp_path, capsys):
+    """``examples.hard_benchmark`` at the default platform (the card) on 12
+    ray-cast frames at the tiny config without loop closure, the ``.h5``
+    loaders answering random_flax_params(0): the JSON's values finite, the
+    exit code its ``gates_pass``, K1 and K2 on every frame."""
+    import json
+    import math
+
+    from caelo_tpu_torch.examples import hard_benchmark
+    from caelo_tpu_torch.models import weights_io
+
+    rp, ep = random_flax_params(0)
+    monkeypatch.setattr(weights_io, "load_respond_layer_params",
+                        lambda path=None: rp)
+    monkeypatch.setattr(weights_io, "load_patch_encoder_params",
+                        lambda path=None: ep)
+    args = hard_benchmark.parser().parse_args([
+        "--frames", "12", "--no-loop", "--json-out", str(tmp_path / "hb.json")])
+    k1, k2 = keypoint_score.launches, patches_from_planes.launches
+    rc = hard_benchmark.run(args, tiny_test_config())
+    out = json.loads((tmp_path / "hb.json").read_text())
+    assert json.loads(capsys.readouterr().out) == out
+    assert rc == (0 if out["gates_pass"] else 1)
+    assert len(out["per_pair_rte_m"]) == 11
+    assert all(math.isfinite(v) for v in out.values() if isinstance(v, float))
+    assert keypoint_score.launches - k1 >= 12
+    assert patches_from_planes.launches - k2 >= 36

@@ -4,7 +4,9 @@ config field by field (one listed exception) and its four constructors, the
 synthetic and ray-cast generators bit for bit, the beam-angle fix, the
 calibration reader, the native loader's source, the scan-cache reader, the
 artifact store's on-disk layout both ways, and de-jump and batched
-refinement on a seeded input."""
+refinement on a seeded input; the example drivers' host-only copies (the
+validation rows' keys, the KITTI golden row and its tolerances, and the
+hard benchmark's gate constants) equal the JAX scripts'."""
 import ast
 import dataclasses
 import glob
@@ -69,7 +71,10 @@ def test_port_files_found():
     assert "chip_smoke.py" in PORT_FILES
     for f in ("config.py", "cli.py", "data/kitti.py", "data/native_loader.py",
               "data/scancache.py", "training/train.py",
-              "training/drivers.py"):
+              "training/drivers.py", "examples/register_pair_demo.py",
+              "examples/train_from_scratch_study.py",
+              "examples/hard_benchmark.py", "examples/loop_closure_demo.py",
+              "examples/collect_validation.py", "examples/kitti_golden.py"):
         assert os.path.join("caelo_tpu_torch", f) in PORT_FILES, f
     assert len(PORT_FILES) > 30
 
@@ -333,3 +338,43 @@ def test_refine_odometry_batched_matches_jax(trusted):
     np.testing.assert_array_equal(pt, pj)
     assert dataclasses.asdict(st) == dataclasses.asdict(sj)
     assert st.refined and (st.failed or st.rejected)
+
+
+def _jax_script_ast(name):
+    with open(os.path.join(REPO, "examples", f"{name}.py")) as f:
+        return ast.parse(f.read())
+
+
+def _assigned(tree, name):
+    """The literal value the module-level ``name = ...`` of ``tree``
+    binds."""
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == name for t in node.targets):
+            return ast.literal_eval(node.value)
+    raise KeyError(name)
+
+
+def test_example_constants_are_copies():
+    """``collect_validation.KEYS``, ``kitti_golden``'s GOLDEN, TOL_SUCCESS
+    and TOL_REL equal the JAX scripts' (read from their source: the
+    scripts stay unimported here); every gate constant of the port's
+    ``hard_benchmark`` is a number literal of the JAX script's ``main``."""
+    from caelo_tpu_torch.examples import (collect_validation, hard_benchmark,
+                                          kitti_golden)
+
+    cv = _jax_script_ast("collect_validation")
+    assert collect_validation.KEYS == _assigned(cv, "KEYS")
+    kg = _jax_script_ast("kitti_golden")
+    for name in ("GOLDEN", "TOL_SUCCESS", "TOL_REL"):
+        assert getattr(kitti_golden, name) == _assigned(kg, name), name
+    main = next(n for n in _jax_script_ast("hard_benchmark").body
+                if isinstance(n, ast.FunctionDef) and n.name == "main")
+    literals = {n.value for n in ast.walk(main)
+                if isinstance(n, ast.Constant)
+                and isinstance(n.value, (int, float))}
+    for name in ("CIRCUIT_FRAMES", "CLEAN_ATE_M", "DAMAGE_M", "REPAIR_RATIO",
+                 "REPAIR_SHARE", "NO_HARM_RATIO", "NO_HARM_M", "RRE_DEG",
+                 "RTE_M", "SUCCESS", "SUCCESS_REFINED", "LOOP_PRECISION",
+                 "LOOP_RECALL", "LOOP_ATE_SHRINK"):
+        assert getattr(hard_benchmark, name) in literals, name

@@ -117,6 +117,66 @@ def test_random_flax_params_match_flax_layout():
     assert shape(rp) == shape(fr) and shape(ep) == shape(fe)
 
 
+def test_ae_params_from_torch_round_trip():
+    """``*_ae_params_from_torch`` invert the converters bit for bit, both
+    ways, and give the tree of both auto-encoders' Flax init (its shapes,
+    traced without running it)."""
+    from caelo_tpu.models.patch_encoder import VoxelPatchAE as JVoxelAE
+    from caelo_tpu.models.respond_net import SphericalRingAE as JRingAE
+    from caelo_tpu_torch.models.patch_encoder import VoxelPatchAE
+    from caelo_tpu_torch.models.respond_net import SphericalRingAE
+
+    key = jax.random.key(0)
+    sph, vox = weights_io.random_ae_params(0)
+    for params, to, back, module, flax in (
+            (sph, weights_io.spherical_ae_params_to_torch,
+             weights_io.spherical_ae_params_from_torch, SphericalRingAE(),
+             jax.eval_shape(JRingAE().init, key, jnp.zeros((1, 8, 8, 3)))),
+            (vox, weights_io.voxel_ae_params_to_torch,
+             weights_io.voxel_ae_params_from_torch, VoxelPatchAE(),
+             jax.eval_shape(JVoxelAE().init, key,
+                            jnp.zeros((1, 16, 16, 16))))):
+        got = back(to(params))
+        assert jax.tree.structure(got) == jax.tree.structure(params)
+        for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(params)):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+        assert (jax.tree.map(np.shape, got)
+                == jax.tree.map(lambda x: x.shape, flax))
+        module.load_state_dict(to(params))
+        sd = module.state_dict()
+        again = to(back(sd))
+        assert again.keys() == sd.keys()
+        for k in sd:
+            assert torch.equal(again[k], sd[k]), k
+
+
+
+def test_load_trained_reads_the_study_checkpoints(tmp_path):
+    """``load_trained`` gives the respond layer and encoder of the two
+    auto-encoders saved where the study saves them, exactly, ready for
+    ``build_models_from_state_dicts``."""
+    from caelo_tpu_torch.models.patch_encoder import VoxelPatchAE
+    from caelo_tpu_torch.models.respond_net import SphericalRingAE
+
+    sph, vox = weights_io.random_ae_params(0)
+    ring, patch = SphericalRingAE(), VoxelPatchAE()
+    ring.load_state_dict(weights_io.spherical_ae_params_to_torch(sph))
+    patch.load_state_dict(weights_io.voxel_ae_params_to_torch(vox))
+    weights_io.save_checkpoint(str(tmp_path / "respond_ae"),
+                               ring.state_dict())
+    weights_io.save_checkpoint(str(tmp_path / "patch_ae"), patch.state_dict())
+    r, e = weights_io.load_trained(str(tmp_path))
+    for got, want in ((r, ring.respond.state_dict()),
+                      (e, patch.encoder.state_dict())):
+        assert got.keys() == want.keys()
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+    for net, sd in zip(weights_io.build_models_from_state_dicts(r, e, "cpu"),
+                       (r, e)):
+        for k, v in net.state_dict().items():
+            assert torch.equal(v, sd[k]), k
+
 def test_match_descriptors_exact_duplicates(rng):
     """Exact duplicate descriptors are at distance exactly 0, whatever the
     matmul's rounding: frame 1 repeats ten frame-0 descriptors, five of

@@ -13,7 +13,17 @@ score within 1e-5 of JAX's and the yaw equal wherever the two best shifts
 are not within 1e-5 of a tie; pose graph (``dryrun.square_graph``, a drifted
 chain with a loop edge) translations within 1e-2, as tests/test_posegraph.py
 holds JAX's sharded solve, and cost within ``dryrun.POSEGRAPH_COST_RTOL``
-(5e-3) relative: the solve ends at a cost of about 2e-3, not at 0."""
+(5e-3) relative: the solve ends at a cost of about 2e-3, not at 0.
+
+The ranks are asked for as gloo CPU ranks: the dry run, ``run_ranks`` and
+``python -m caelo_tpu_torch.parallel.dryrun`` default to NCCL ranks on the
+card, and the last refuses a host without enough CUDA devices unless given
+``--platform cpu``."""
+import inspect
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -38,14 +48,15 @@ PATHS = ("mesh", "extract", "halo", "posegraph", "sc")
 
 @pytest.fixture(scope="module")
 def inputs():
-    return dryrun.dryrun_inputs(N_RANKS)
+    return dryrun.dryrun_inputs(N_RANKS, "cpu")
 
 
 @pytest.fixture(scope="module")
 def port(inputs):
     """Rank 0's gathered results of the paths; each rank has checked its
     path against the port's one-device function."""
-    ranks = run_ranks(dryrun.sharded_paths, N_RANKS, args=(inputs, PATHS))
+    ranks = run_ranks(dryrun.sharded_paths, N_RANKS,
+                      args=(inputs, PATHS, "cpu"), device_type="cpu")
     ranks[0]["meshes"] = [r["mesh"] for r in ranks]
     return ranks[0]
 
@@ -147,3 +158,17 @@ def test_sharded_pose_graph_matches_jax(inputs, port, mesh):
     np.testing.assert_allclose(pg["t"], np.asarray(tj), atol=1e-2)
     np.testing.assert_allclose(pg["cost"], float(cj),
                                rtol=dryrun.POSEGRAPH_COST_RTOL)
+
+
+def test_dry_run_defaults_to_the_card():
+    for fn in (run_ranks, dryrun.dryrun_multigpu, dryrun.dryrun_inputs,
+               dryrun.sharded_paths):
+        assert inspect.signature(fn).parameters["device_type"].default == (
+            "cuda"), fn.__name__
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run(
+        [sys.executable, "-m", "caelo_tpu_torch.parallel.dryrun", "2"],
+        capture_output=True, text=True, timeout=120, env=env,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert out.returncode != 0
+    assert "--platform cpu" in out.stderr and not out.stdout

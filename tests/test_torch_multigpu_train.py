@@ -46,13 +46,14 @@ N_RANKS = 4
 
 @pytest.fixture(scope="module")
 def inputs():
-    return dryrun.dryrun_inputs(N_RANKS)
+    return dryrun.dryrun_inputs(N_RANKS, "cpu")
 
 
 @pytest.fixture(scope="module")
 def port(inputs):
     return run_ranks(dryrun.sharded_paths, N_RANKS,
-                     args=(inputs, ("train", "icp")))[0]
+                     args=(inputs, ("train", "icp"), "cpu"),
+                     device_type="cpu")[0]
 
 
 @pytest.fixture(scope="module")
