@@ -13,7 +13,10 @@ defaults, printed lines and JSON fields.
 * ``loop_closure_demo``: a square loop whose drift loop closure removes;
 * ``collect_validation``: rows of ``hard_benchmark`` JSONs in one file;
 * ``kitti_golden``: the KITTI regression against the reference's golden
-  row.
+  row;
+* ``seq_scale``: the 4,541-frame sequence-scale proof (the ray-cast
+  circuit driven ~8.7 laps from an on-disk scan cache), gated on pair
+  success, frames/s end to end, host RSS, loop precision and the ATE.
 
 Every driver that runs the pipeline takes the command line's
 ``--platform`` (``cli._add_common``): the card by default, the CPU only

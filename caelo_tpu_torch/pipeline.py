@@ -500,7 +500,8 @@ def run_full_pipeline(scans: Iterable, respond_net, encoder,
                       window: int = 16,
                       candidate_source: str = "descriptor", *,
                       samples=None, loop_samples: Callable | None = None,
-                      anchor_samples: Callable | None = None
+                      anchor_samples: Callable | None = None,
+                      threaded_staging: bool = False
                       ) -> FullPipelineResult:
     """The end-to-end odometry stack over ``scans``, a sequence of ``(pts
     (N, 4), mask (N,))`` arrays, on the device of ``respond_net``: front
@@ -518,6 +519,9 @@ def run_full_pipeline(scans: Iterable, respond_net, encoder,
     of ``_verify_loop_candidates``, and ``anchor_samples(i, j, R_prior,
     t_prior) -> (H, S)`` for the burst anchor registrations; otherwise the
     draws come from ``torch.Generator``s seeded from ``seed``.
+    ``threaded_staging`` is ``run_odometry_windowed``'s: the front end's
+    windows staged by a producer thread (the JAX package always does so),
+    the same poses bit for bit.
     """
     if R_tr is None:
         R_tr = np.eye(3)
@@ -541,7 +545,8 @@ def run_full_pipeline(scans: Iterable, respond_net, encoder,
         out = run_odometry_windowed(
             scans, respond_net, encoder, R_tr, t_tr, cfg,
             window=min(window, len(scans)), seed=seed, keep_features=True,
-            keep_refine_features=enable_refinement, samples=samples)
+            keep_refine_features=enable_refinement, samples=samples,
+            threaded_staging=threaded_staging)
     odo, feats = out[0], out[1]
     ref_feats = out[2] if enable_refinement else None
     poses_raw = odo.poses

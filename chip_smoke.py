@@ -113,12 +113,23 @@ Phases (each raises on failure; the script then exits nonzero):
    ``.h5`` loaders answering (a)'s weights at the relu / linear encoder:
    finite errors and ATEs (the demos' own checks and the golden verdict
    are logged, not asserted), and ``collect_validation`` over (b)'s JSON:
-   one row of the JAX script's keys.
+   one row of the JAX script's keys;
+14. the sequence-scale driver: (a) ``data.scancache``'s parallel cache
+   writer, 8 frames of the 520-frame circuit over 4 processes, byte for
+   byte ``write_benchmark_cache``'s three files; (b) ``seq_scale.run``
+   over phase 7's circuit written as its scan cache (no ray cast) with
+   13a's weights, staging windows when due and then in a producer thread:
+   every field of the JAX script's JSON, finite (the loop precision of a
+   run with no accepted edge is NaN), the exit code the gates' verdict
+   (not asserted to pass), K1 and K2 on every frame, stage seconds and
+   peak device memory logged, and all four pose arrays of the threaded run
+   bit-identical to the default's.
 
 Kernel launches are counted on the main path only (runs A, 6a, 6d, 7, the
 trainers and the window of phase 8, the commands of phases 9 and 10b, the
 windows and the unsorted-pyramid query of phase 11, 12a's extractor in
-its rank, whose counts come back to this process, and phase 13's drivers),
+its rank, whose counts come back to this process, phase 13's drivers and
+phase 14b's two runs),
 each count set to 0 just before its run and read just after.  Prints a
 ``{"kernels": [...]}`` JSON line, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Without a CUDA device
@@ -160,6 +171,14 @@ HB_FIELDS = ("frames", "window", "pipeline_seed", "candidate_source",
              "per_pair_rre_deg", "per_pair_rte_m", "gates_pass")
 STUDY_FIELDS = {"tag", "n_pairs", "success_rate", "rot_err_deg_mean",
                 "t_err_m_mean", "inlier_ratio_mean"}
+# phase 14: the parallel cache writer's frames and processes, and the JSON
+# fields of examples/seq_scale.py:119-151
+WRITER_FRAMES, WRITER_PROCS = 8, 4
+SS_FIELDS = ("frames", "window", "candidate_source", "gen_seconds",
+             "pipeline_seconds", "frames_per_s_e2e", "peak_rss_gb",
+             "stage_seconds", "success_rate", "rre_deg", "rte_m", "ate_m",
+             "n_loop_closures", "loop_precision", "loop_recall",
+             "loop_edges", "dejumped", "refined_spans", "max_unpinned_span")
 REPS = 50            # kernel timing launches per arm
 STAGE_REPS = 20      # per-frame stage timings per arm
 WINDOW_REPS = 3      # warm window timings
@@ -1856,6 +1875,108 @@ def example_drivers(cfg, card, tmp, circuit):
     return launches
 
 
+def sequence_scale(cfg, card, tmp, circuit):
+    """Phase 14: the sequence-scale driver.  (a) ``data.scancache``'s
+    parallel cache writer against ``write_benchmark_cache``, byte for byte;
+    (b) ``seq_scale.run`` over phase 7's circuit written as its scan cache
+    with 13a's weights, once staging windows when due and once in a
+    producer thread.  Returns the launch counts of (b)'s runs."""
+    import filecmp
+    import torch
+    from caelo_tpu_torch.data.scancache import (
+        write_benchmark_cache, write_benchmark_cache_parallel)
+    from caelo_tpu_torch.examples import seq_scale
+
+    # ---- (a) the parallel writer, byte for byte the serial one
+    serial, parallel = (os.path.join(tmp, d, "seq") for d in ("ws", "wp"))
+    t0 = time.perf_counter()
+    write_benchmark_cache(serial, WRITER_FRAMES, cfg,
+                          lap_frames=seq_scale.LAP_FRAMES)
+    t1 = time.perf_counter()
+    write_benchmark_cache_parallel(
+        parallel, WRITER_FRAMES, cfg, lap_frames=seq_scale.LAP_FRAMES,
+        procs=WRITER_PROCS)
+    t2 = time.perf_counter()
+    same = {s: filecmp.cmp(serial + s, parallel + s, shallow=False)
+            for s in (".pts.npy", ".msk.npy", ".gt.npy")}
+    log(f"14a cache of {WRITER_FRAMES} frames: serial {t1 - t0:.1f} s, "
+        f"{WRITER_PROCS} processes {t2 - t1:.1f} s; files equal {same}")
+    if not all(same.values()) or sorted(os.listdir(os.path.dirname(
+            parallel))) != ["seq.gt.npy", "seq.msk.npy", "seq.pts.npy"]:
+        raise AssertionError(f"14a the parallel writer's files {same}")
+
+    # ---- (b) seq_scale.run on the circuit's cache, 13a's weights
+    scans, gt = circuit
+    n = len(scans)
+    base = os.path.join(tmp, "circuit")
+    np.save(base + ".pts.npy", np.stack([p for p, _ in scans]))
+    np.save(base + ".msk.npy", np.stack([m for _, m in scans]))
+    np.save(base + ".gt.npy", gt)
+    json_out = os.path.join(tmp, "seq_scale.json")
+    argv = ["--frames", str(n), "--scan-cache", base, "--weights",
+            os.path.join(tmp, "scratch"), "--json-out", json_out]
+    launches = {"saliency_map": 0, "gather_planes": 0}
+    pipeline = seq_scale.run_full_pipeline
+    results = {}
+    for threaded in (False, True):
+        seq_scale.run_full_pipeline = lambda *a, **kw: results.setdefault(
+            threaded, pipeline(*a, threaded_staging=threaded, **kw))
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            rc, _, _ = echo(seq_scale.run, seq_scale.parser().parse_args(
+                argv), cfg, show_out=False)     # the JSON, read from its file
+        finally:
+            seq_scale.run_full_pipeline = pipeline
+        torch.cuda.synchronize()
+        used = launch_counts()
+        add_launches(launches, used)
+        with open(json_out) as f:
+            out = json.load(f)
+        log(f"14b seq_scale.run {' '.join(argv[:2])}, threaded staging "
+            f"{threaded}: exit {rc}, {time.perf_counter() - t0:.1f} s, "
+            f"launches {used}; stage seconds "
+            f"{ {k: v['total_s'] for k, v in out['stage_seconds'].items()} }"
+            f", pipeline {out['pipeline_seconds']} s, peak device memory "
+            f"{out['peak_device_mib']} MiB, peak RSS {out['peak_rss_gb']} "
+            f"GB; {card}")
+        missing = [k for k in SS_FIELDS if k not in out]
+        # a run with no accepted edge has no precision: loop_closure_pr
+        # answers NaN for it (the loop stage runs past 100 frames only)
+        nan_ok = {"loop_precision"} if out["n_loop_closures"] == 0 else set()
+        values = [(k, v) for k, v in out.items() if k not in nan_ok
+                  and isinstance(v, float)]
+        values += [(f"ate_m.{k}", v) for k, v in out["ate_m"].items()]
+        values += [(f"stage_seconds.{k}", v["total_s"])
+                   for k, v in out["stage_seconds"].items()]
+        bad = [k for k, v in values if not np.isfinite(v)]
+        verdict = all(seq_scale.gates(out).values())
+        if missing or bad or rc != (0 if verdict else 1):
+            raise AssertionError(f"14b fields missing {missing}, not finite "
+                                 f"{bad}, exit {rc}, gates {verdict}")
+        if not ({"frontend", "dejump", "refine"} <= set(out["stage_seconds"])
+                and out["peak_device_mib"] > 0
+                and out["device"] == torch.cuda.get_device_name(0)):
+            raise AssertionError(f"14b stage seconds, device memory or "
+                                 f"device: {out}")
+        if (used["saliency_map"] < n or used["gather_planes"] < 3 * n):
+            raise AssertionError("14b the pipeline did not run K1 and K2 per "
+                                 "frame")
+    log(f"14b gates (not asserted): {seq_scale.gates(out)}; success "
+        f"{out['success_rate']}, "
+        f"{out['frames_per_s_e2e']} frames/s, ATE {out['ate_m']}, loop "
+        f"closures {out['n_loop_closures']}, max unpinned span "
+        f"{out['max_unpinned_span']}")
+    for name in ("poses_raw", "poses_dejumped", "poses_refined",
+                 "poses_final"):
+        if not np.array_equal(getattr(results[True], name),
+                              getattr(results[False], name)):
+            raise AssertionError(f"14b threaded staging changed {name}")
+    log("14b threaded staging: all four pose arrays bit-identical to "
+        "staging each window when due")
+    return launches
+
+
 def timed_ms(fn, reps):
     """Host wall-clock ms per call of ``fn``, synchronised, after one warm
     call; returns the list of times."""
@@ -2288,6 +2409,8 @@ def main():
         # ---- 13. the example drivers: the study on phase 7's circuit, the
         # hard benchmark with its weights, the demos, KITTI golden
         add_launches(launches, example_drivers(cfg, smi, tmp, circuit))
+        # ---- 14. the sequence-scale driver on the circuit's scan cache
+        add_launches(launches, sequence_scale(cfg, smi, tmp, circuit))
     # ---- 12. multi-GPU: a NCCL world on the card, and 4 gloo CPU ranks
     add_launches(launches, multi_gpu(cfg, smi, scans, (respond_np, encoder_np),
                                      ref, (relRs, relTs)))

@@ -51,7 +51,7 @@ from caelo_tpu.frontend.matching import match_descriptors as jmatch
 from caelo_tpu_torch import config as tcfg
 from caelo_tpu_torch.examples import (collect_validation, hard_benchmark,
                                       kitti_golden, loop_closure_demo,
-                                      register_pair_demo)
+                                      register_pair_demo, seq_scale)
 from caelo_tpu_torch.examples import train_from_scratch_study as study
 from caelo_tpu_torch.models import weights_io
 
@@ -481,7 +481,8 @@ def test_hard_benchmark_on_cpu(random_h5, tmp_path, capsys):
 # -------------------------------------------------- (h) the device
 @pytest.mark.parametrize("driver,argv", [
     (register_pair_demo, []), (study, []), (hard_benchmark, []),
-    (loop_closure_demo, []), (kitti_golden, ["--data", "unused"])])
+    (loop_closure_demo, []), (kitti_golden, ["--data", "unused"]),
+    (seq_scale, [])])
 def test_drivers_refuse_the_cpu_unasked(monkeypatch, driver, argv):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="--platform cpu"):
