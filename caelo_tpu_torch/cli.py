@@ -6,6 +6,7 @@ train, odometry, refine, loop closure, evaluate and the full stack.
   python -m caelo_tpu_torch.cli evaluate --gt ... --est ...
   python -m caelo_tpu_torch.cli train-respond / train-patch ...
   python -m caelo_tpu_torch.cli selftest   # synthetic end-to-end check
+  python -m caelo_tpu_torch.cli bench      # front-end frames/s, one JSON line
 
 Every command runs on the CUDA device (``--platform cuda``, the default)
 and on the CPU only when asked (``--platform cpu``); without a CUDA device
@@ -14,8 +15,8 @@ every keypoint source: the CAE-LO window, the ISS / Harris3D / SIFT3D /
 random baselines and external keypoint trees.  ``scaling`` spawns one
 rank per CUDA device (``--platform cpu --ranks R``: R gloo ranks on the
 CPU) and sweeps the data-parallel feature extractor over them.  ``bench``
-is not ported yet and raises, naming the part of ``ROADMAP.md`` that
-brings it.
+times the steady-state 64-frame front-end window (``bench.py``, its knobs
+the ``BENCH_*`` environment variables).
 """
 from __future__ import annotations
 
@@ -368,9 +369,10 @@ def _scaling_rank(rank, world, device_type, frames_per_device):
 
 
 def cmd_bench(args):
-    raise NotImplementedError(
-        "bench: the port has no benchmark yet; it comes with a benchmark PR "
-        "(ROADMAP.md)")
+    """Steady-state front-end window throughput (``bench.py``)."""
+    from .bench import main
+
+    return main(["--platform", args.platform])
 
 
 def main(argv=None):
@@ -497,8 +499,9 @@ def main(argv=None):
     _add_common(p)
     p.set_defaults(fn=cmd_train_patch)
 
-    p = sub.add_parser("bench", help="run the benchmark (not ported yet: "
-                                     "raises)")
+    p = sub.add_parser("bench", help="front-end window frames/s, MFU and "
+                                     "work counts (one JSON line; "
+                                     "BENCH_FRAMES, BENCH_REPS, BENCH_DTYPE)")
     _add_common(p)
     p.set_defaults(fn=cmd_bench)
 

@@ -151,6 +151,26 @@ def keypoint_dispersion(kp, mask, bins=None) -> dict:
     return _histogram(d[np.isfinite(d)], bins)
 
 
+PR_ROW_BLOCK = 128          # rows of the revisit matrix a pass
+
+
+def revisit_matrix(pos: np.ndarray, min_gap: int, revisit_m: float):
+    """``(N, N)`` bool: ``[i, j]`` where ``j - i >= min_gap`` and positions
+    ``i`` and ``j`` (float64) lie within ``revisit_m``.  Built a block of
+    ``PR_ROW_BLOCK`` rows at a time: the block's float64 differences take a
+    few MB where all N x N x 3 of them take 495 MB at N = 4,541; each entry
+    is the one the whole difference gives."""
+    n = pos.shape[0]
+    idx = np.arange(n)
+    gt = np.empty((n, n), bool)
+    for lo in range(0, n, PR_ROW_BLOCK):
+        rows = slice(lo, lo + PR_ROW_BLOCK)
+        dist = np.linalg.norm(pos[None, :] - pos[rows, None], axis=-1)
+        gt[rows] = (dist <= revisit_m) & (
+            (idx[None, :] - idx[rows, None]) >= min_gap)
+    return gt
+
+
 def loop_closure_pr(edge_i, edge_j, positions, min_gap: int = 50,
                     revisit_m: float = 5.0, window: int = 10) -> dict:
     """Precision/recall of detected loop closures against ground truth.
@@ -165,9 +185,7 @@ def loop_closure_pr(edge_i, edge_j, positions, min_gap: int = 50,
     n = pos.shape[0]
     ei = np.minimum(np.asarray(edge_i, int), np.asarray(edge_j, int))
     ej = np.maximum(np.asarray(edge_i, int), np.asarray(edge_j, int))
-    dist = np.linalg.norm(pos[None, :] - pos[:, None], axis=-1)
-    idx = np.arange(n)
-    gt = (dist <= revisit_m) & ((idx[None, :] - idx[:, None]) >= min_gap)
+    gt = revisit_matrix(pos, min_gap, revisit_m)
 
     tp = 0
     for a, b in zip(ei, ej):

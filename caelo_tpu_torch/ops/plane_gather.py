@@ -53,6 +53,16 @@ def patches_from_planes_plain(table2: torch.Tensor, slot: torch.Tensor,
     return ((winy[..., None] >> ar.to(torch.int32)) & 1).to(torch.float32)
 
 
+def patches_from_planes_bytes(table2: torch.Tensor, slot: torch.Tensor
+                              ) -> int:
+    """The bytes :func:`patches_from_planes` must move, each once: the
+    distinct table planes its slots name, the int32 slots and offsets, and
+    the ``(K, P, P, P)`` float32 patches written."""
+    K, P = slot.shape[0], table2.shape[-1]
+    rows = torch.unique(slot.clamp(0, table2.shape[0] - 1)).numel()
+    return rows * P * P * 4 + K * (8 + 3) * 4 + K * P ** 3 * 4
+
+
 def patches_from_planes(table2: torch.Tensor, slot: torch.Tensor,
                         o: torch.Tensor) -> torch.Tensor:
     """K2 wrapper: :func:`patches_from_planes_plain` in one kernel launch.

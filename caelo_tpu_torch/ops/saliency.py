@@ -223,6 +223,15 @@ def keypoint_score(planes: torch.Tensor, image: torch.Tensor,
     return KeypointScore(*maps)
 
 
+def keypoint_score_bytes(planes: torch.Tensor) -> int:
+    """The bytes :func:`keypoint_score` must move on ``planes`` (``(C, H,
+    W)`` or ``(B, C, H, W)``), each once: the float32 planes and, per pixel,
+    the int32 counter and the z and range channels read, score and
+    saliency written."""
+    n_pix = planes.numel() // planes.shape[-3]
+    return planes.numel() * 4 + n_pix * (4 + 8 + 8)
+
+
 def saliency_map(planes: torch.Tensor, occ: torch.Tensor):
     """K1's own function, :func:`saliency_map_plain` at the 5x5 window:
     ``(min_d2, n_occ)``.

@@ -123,13 +123,22 @@ Phases (each raises on failure; the script then exits nonzero):
    run with no accepted edge is NaN), the exit code the gates' verdict
    (not asserted to pass), K1 and K2 on every frame, stage seconds and
    peak device memory logged, and all four pose arrays of the threaded run
-   bit-identical to the default's.
+   bit-identical to the default's;
+15. the benchmark: ``cli bench`` in process (``caelo_tpu_torch/bench.py``)
+   at 64 and then 16 frames in float32, then 64 frames in bfloat16, 12
+   timed reps each: its one JSON line (finite frames/s, p50 and p95, ``0 <
+   mfu <= 1`` against the peak of its dtype, FLOPs and peak device memory
+   logged), the FLOP count's convolutions and linear layers equal to the
+   hand count from the layer shapes and its total within 10 % of the hand
+   count with matching, K1 n and K2 3n times in each of the 14 windows a
+   run makes (warm-up, reps, the counted window), and frames 0-15 of the
+   64-frame float32 window bit-identical to the 16-frame window's.
 
 Kernel launches are counted on the main path only (runs A, 6a, 6d, 7, the
 trainers and the window of phase 8, the commands of phases 9 and 10b, the
 windows and the unsorted-pyramid query of phase 11, 12a's extractor in
-its rank, whose counts come back to this process, phase 13's drivers and
-phase 14b's two runs),
+its rank, whose counts come back to this process, phase 13's drivers,
+phase 14b's two runs and phase 15's benches),
 each count set to 0 just before its run and read just after.  Prints a
 ``{"kernels": [...]}`` JSON line, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Without a CUDA device
@@ -144,6 +153,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 
@@ -179,6 +189,10 @@ SS_FIELDS = ("frames", "window", "candidate_source", "gen_seconds",
              "stage_seconds", "success_rate", "rre_deg", "rte_m", "ate_m",
              "n_loop_closures", "loop_precision", "loop_recall",
              "loop_edges", "dejumped", "refined_spans", "max_unpinned_span")
+# phase 15: the bench's (window size, BENCH_DTYPE) runs and timed reps
+# (cli bench's defaults; bfloat16 once, for its MFU against the bfloat16 peak)
+BENCH_RUNS = ((64, "float32"), (16, "float32"), (64, "bfloat16"))
+BENCH_REPS = 12
 REPS = 50            # kernel timing launches per arm
 STAGE_REPS = 20      # per-frame stage timings per arm
 WINDOW_REPS = 3      # warm window timings
@@ -197,11 +211,6 @@ BIN_SHARE = 0
 # where atan2 / asin put it within this relative distance of a bin edge
 # (tests/test_torch_models.py's _edge_cells)
 RING_EDGE = 1e-4
-# the least time of a kernel: bytes over the H100 SXM's 3.35 TB/s of device
-# memory, float32 operations over its 67 TFLOP/s outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-
 
 def log(*args):
     print(*args, flush=True)
@@ -285,9 +294,14 @@ def host_us(fn, reps=REPS):
 
 def bound(n_bytes, n_ops):
     """``(ms, "bytes" | "operations")``: the least time the card could take
-    to move ``n_bytes`` and do ``n_ops`` float32 operations."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    to move ``n_bytes`` and do ``n_ops`` float32 operations, at its peaks
+    in ``caelo_tpu_torch/bench.py`` (a card that table lacks stops)."""
+    import torch
+    from caelo_tpu_torch.bench import PEAK_FLOPS, PEAK_HBM_BYTES, lookup_peak
+
+    name = torch.cuda.get_device_name(0)
+    t_bytes = n_bytes / lookup_peak(PEAK_HBM_BYTES, name) * 1e3
+    t_ops = n_ops / lookup_peak(PEAK_FLOPS, name)["float32"] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -365,11 +379,13 @@ def k1_bound(planes, counter, want):
     occupied neighbour 8 differences, 8 squares, 8 sums and a min, per
     occupied window pixel (centre included) a z min and max, ~12 per pixel
     for the square root and gates."""
+    from caelo_tpu_torch.ops.saliency import keypoint_score_bytes
+
     H, W = planes.shape[-2:]
     n_pix = want.score.numel()
     n_nb = int(want.n_occ.sum())
     n_occ = int((counter[..., :H, :W] > 0).sum())
-    n_bytes = planes.numel() * 4 + n_pix * (4 + 8 + 8)
+    n_bytes = keypoint_score_bytes(planes)
     n_ops = 25 * n_nb + 2 * (n_nb + n_occ) + 12 * n_pix
     log(f"K1 bound of {tuple(planes.shape)}: {n_bytes / 1e6:.3f} MB, "
         f"{n_ops / 1e6:.3f} M float32 operations")
@@ -395,14 +411,13 @@ def k2_bound(query):
     (1 KB each), the slots and offsets, once, and the float32 patches
     written; ~3 integer operations per patch value (shift, and, convert),
     counted at the float32 rate."""
-    import torch
+    from caelo_tpu_torch.ops.plane_gather import patches_from_planes_bytes
 
     table2, slot, o = query
     K = slot.shape[0]
-    rows = torch.unique(slot.clamp(0, table2.shape[0] - 1)).numel()
-    n_bytes = rows * table2[0].numel() * 4 + K * (8 + 3) * 4 + K * 4096 * 4
+    n_bytes = patches_from_planes_bytes(table2, slot)
     log(f"K2 bound of {K} keypoints on a table of {table2.shape[0]} rows: "
-        f"{rows} distinct planes, {n_bytes / 1e6:.3f} MB")
+        f"{n_bytes / 1e6:.3f} MB")
     return bound(n_bytes, 3 * K * 4096)
 
 
@@ -1977,6 +1992,112 @@ def sequence_scale(cfg, card, tmp, circuit):
     return launches
 
 
+def bench_flops_by_hand(cfg, n):
+    """``(conv + linear, whole)``: the FLOPs of an ``n``-frame window of the
+    processor from its layer shapes: per frame the respond net's 3x3 and
+    1x1 convs over the (H, W) ring image and the encoder's three conv3d and
+    two linear layers on 3 x K patches; per pair the (K, 60) x (60, K)
+    distance matmul of matching."""
+    H, W = cfg.sensor.model_h, cfg.sensor.model_w
+    K = cfg.keypoint.n_keypoints
+    respond = 2 * H * W * (3 * 32 * 9 + 32 * 8)
+    encoder = 2 * (16 ** 3 * 8 * 27 + 8 ** 3 * 8 * 16 * 27
+                   + 4 ** 3 * 16 * 32 * 27 + 32 * 4 ** 3 * 200 + 200 * 20)
+    layers = n * (respond + 3 * K * encoder)
+    return layers, layers + (n - 1) * 2 * K * K * (3 * 20)  # 3 scales' codes
+
+
+def bench_windows(cfg, card, tmp):
+    """Phase 15: ``cli bench`` in process for each of ``BENCH_RUNS``,
+    ``BENCH_REPS`` reps: its JSON line (finite frames/s, ``0 < mfu <= 1``,
+    FLOPs, peak memory), its FLOP count against the hand count, K1 n and K2
+    3n times in every window it ran (warm-up, reps, the counted window),
+    and frames 0-15 of the 64-frame float32 window bit-identical to the
+    16-frame window's.  Returns the launch counts."""
+    import torch
+    from caelo_tpu_torch import bench, cli
+
+    make = bench.make_sequence_processor
+    launches = {"saliency_map": 0, "gather_planes": 0}
+    first = {}               # (frames, dtype) -> the warm-up's features
+    for n, dtype in BENCH_RUNS:
+        windows = []                 # each window's launches
+
+        def recording(cfg_, run_key=(n, dtype), windows=windows):
+            process = make(cfg_)
+
+            def run(*args):
+                before = launch_counts()
+                out = process(*args)
+                windows.append({k: v - before[k]
+                                for k, v in launch_counts().items()})
+                first.setdefault(run_key, out[0])
+                return out
+
+            return run
+
+        metrics = os.path.join(tmp, f"bench{n}{dtype}.jsonl")
+        env = {"BENCH_FRAMES": str(n), "BENCH_REPS": str(BENCH_REPS),
+               "BENCH_DTYPE": dtype, "BENCH_METRICS": metrics}
+        what = f"{n} frames {dtype}"
+        reset_launches()
+        t0 = time.perf_counter()
+        with mock.patch.dict(os.environ, env), mock.patch.object(
+                bench, "make_sequence_processor", recording):
+            rc, out, _ = echo(cli.main, ["bench"])
+        seconds = time.perf_counter() - t0
+        used = launch_counts()
+        add_launches(launches, used)
+        lines = out.splitlines()
+        res = json.loads(lines[-1])
+        with open(metrics) as f:
+            rec = json.loads(f.read().splitlines()[-1])
+        layers, whole = bench_flops_by_hand(cfg, n)
+        counted = rec["flops_by_op"]
+        log(f"15 cli bench, {what}, {BENCH_REPS} reps: {seconds:.1f} s in "
+            f"all; {res['value']} frames/s, p50 {res['p50_ms']} ms, p95 "
+            f"{res['p95_ms']} ms, warm-up {res['warmup_s']} s, mfu "
+            f"{res['mfu']}, costmodel_hbm_frac {res['costmodel_hbm_frac']}, "
+            f"peak device memory {res['peak_mem_mib']} MiB (with the live "
+            f"tensors of earlier phases); {card}")
+        log(f"15 {what}: window ms {rec['window_ms']}, pair success "
+            f"{rec['pair_success']}/{n - 1}; FLOPs {res['flops_per_window']:.6e}"
+            f" ({counted}), by hand: layers {layers:.6e}, with matching "
+            f"{whole:.6e}; bytes {res['bytes_per_window']:.6e}; launches "
+            f"{used}")
+        if rc != 0 or len(lines) != 1:
+            raise AssertionError(f"15 cli bench: exit {rc}, {len(lines)} "
+                                 "lines")
+        finite = [res[k] for k in ("value", "p50_ms", "p95_ms", "mfu",
+                                   "flops_per_window", "peak_mem_mib")]
+        if not (np.isfinite(finite).all() and res["value"] > 0
+                and 0 < res["mfu"] <= 1 and res["flops_per_window"] > 0
+                and res["peak_mem_mib"] > 0):
+            raise AssertionError(f"15 {what}: {res}")
+        if (res["metric"], res["device"], res["n_frames_window"],
+                res["reps"], res["dtype"]) != (
+                    "frontend_frames_per_s", torch.cuda.get_device_name(0),
+                    n, BENCH_REPS, dtype):
+            raise AssertionError(f"15 {what}: {res}")
+        if (counted["convolution"] + counted["addmm"] != layers
+                or abs(res["flops_per_window"] / whole - 1) > 0.1):
+            raise AssertionError(f"15 {what}: FLOPs {counted} against "
+                                 f"{layers} / {whole} by hand")
+        want = {"saliency_map": n, "gather_planes": 3 * n}
+        if len(windows) != BENCH_REPS + 2 or any(w != want for w in windows):
+            raise AssertionError(f"15 {what}: launches per window "
+                                 f"{windows}, want {want} in each of "
+                                 f"{BENCH_REPS + 2}")
+    big, small = (64, "float32"), (16, "float32")
+    for name, a, b in zip(first[small]._fields, first[big], first[small]):
+        if not torch.equal(a[:small[0]], b):
+            raise AssertionError(f"15 frames 0-{small[0] - 1}: {name} "
+                                 "differs between the two windows")
+    log(f"15 frames 0-{small[0] - 1} of the {big[0]}-frame window: features "
+        f"bit-identical to the {small[0]}-frame window's")
+    return launches
+
+
 def timed_ms(fn, reps):
     """Host wall-clock ms per call of ``fn``, synchronised, after one warm
     call; returns the list of times."""
@@ -2411,6 +2532,8 @@ def main():
         add_launches(launches, example_drivers(cfg, smi, tmp, circuit))
         # ---- 14. the sequence-scale driver on the circuit's scan cache
         add_launches(launches, sequence_scale(cfg, smi, tmp, circuit))
+        # ---- 15. the bench: the 64- and 16-frame windows, and 64 in bfloat16
+        add_launches(launches, bench_windows(cfg, smi, tmp))
     # ---- 12. multi-GPU: a NCCL world on the card, and 4 gloo CPU ranks
     add_launches(launches, multi_gpu(cfg, smi, scans, (respond_np, encoder_np),
                                      ref, (relRs, relTs)))

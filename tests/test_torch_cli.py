@@ -1,14 +1,14 @@
 """The port's data I/O and command line against the JAX package: KITTI
 scans, calibration, the native loader and its numpy fallback, the scan
 caches, the ``evaluate`` and ``refine`` commands on the same files,
-``selftest`` and ``full`` on the CPU,
-the preprocess -> refine -> loop chain, and the command that is not
-ported yet (``bench``).  ``run_odometry`` and the drivers' generator
-input are in ``tests/test_torch_cli_odometry.py`` (a file of their own, so
-the suite's workers can take them apart from this one),
+``selftest`` and ``full`` on the CPU and
+the preprocess -> refine -> loop chain.  ``run_odometry`` and the drivers'
+generator input are in ``tests/test_torch_cli_odometry.py`` (a file of
+their own, so the suite's workers can take them apart from this one),
 ``odometry --keypoints`` with the other sources in
 ``tests/test_torch_cli_keypoints.py``, ``scaling`` in
-``tests/test_torch_multigpu_train.py``.
+``tests/test_torch_multigpu_train.py``, ``bench`` in
+``tests/test_torch_bench.py``.
 
 Tolerances: scans, calibration, scan caches, ``evaluate``'s JSON and the
 de-jumped poses bit-equal.  ``_jax_sequential_samples`` (JAX's draws of
@@ -354,14 +354,6 @@ def test_cli_stage_chain_on_cpu(kitti_tree, tmp_path, random_weights,
     for name in ("poses_", "poses__", "poses___", "poses____"):
         P = np.loadtxt(os.path.join(out, name, f"{SEQ}.txt"))
         assert P.shape == (N_FRAMES, 12) and np.isfinite(P).all(), name
-
-
-@pytest.mark.parametrize("argv,slice_name", [
-    (["bench"], "benchmark PR"),
-])
-def test_unported_commands_raise_naming_their_slice(argv, slice_name):
-    with pytest.raises(NotImplementedError, match=slice_name):
-        cli.main(argv + ["--platform", "cpu"])
 
 
 def test_cuda_default_without_a_card_fails(monkeypatch):
