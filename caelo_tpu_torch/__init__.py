@@ -30,13 +30,3 @@ def setup_device(device) -> torch.device:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device(device)
-
-
-def divide(x: torch.Tensor, d: float) -> torch.Tensor:
-    """``x / d`` as one IEEE division on every device.  For a Python-number
-    divisor (or a 0-d CPU tensor) PyTorch's CUDA kernel multiplies by the
-    reciprocal instead, which can move a quotient by an ulp and a point
-    across a bin edge; a 0-d divisor on ``x``'s own device keeps the
-    division the CPU (and JAX) compute.  ``d`` is rounded to ``x``'s dtype,
-    as a Python-number divisor is."""
-    return x / torch.full((), d, dtype=x.dtype, device=x.device)

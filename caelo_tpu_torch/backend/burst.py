@@ -34,6 +34,14 @@ from .icp import _sat_mean, nearest_neighbors
 GATE_RANGE = 10.0     # metres at which icp_vs_map's angular gate term = thr
 
 
+def gate_slope(thr: np.float32) -> np.float32:
+    """float32 ``thr / GATE_RANGE`` as the jitted JAX loop computes it: a
+    product with the reciprocal (XLA's rewrite of a division by a
+    constant), which a true division misses by an ulp for ~20 % of
+    thresholds."""
+    return thr * (np.float32(1) / np.float32(GATE_RANGE))
+
+
 class MapIcp:
     """The state of one map ICP between trips: the cloud ``pc (E, 3)``,
     moved by ``(R0, t0)``, onto the map ``mpts (M, 3)``; one lane of
@@ -74,7 +82,7 @@ class MapIcp:
             self.rlast = _sat_mean(dist, self.msk)
             if i == 0:
                 self.r0m = self.rlast
-        gate = torch.clamp_min(self.ranges * float(self.thr / f32(GATE_RANGE)),
+        gate = torch.clamp_min(self.ranges * float(gate_slope(self.thr)),
                                float(self.thr))
         w = ((dist < gate) & self.msk).to(torch.float32)
         Rd, td = se3.solve_rigid_horn(self.mpts[idx], self.pcc, w)
@@ -223,8 +231,11 @@ def burst_map_icp(ext_pts: torch.Tensor, ext_mask: torch.Tensor,
     # entry-anchor reference, distribute the endpoint delta smoothly over
     # the span (rotation-vector interpolation), rebuild the map at the
     # corrected poses and polish once more
+    # a true division, as JAX's by the traced span length (a Python-number
+    # divisor is a product with its reciprocal on the card)
     frac = torch.clamp(torch.arange(L + 1, dtype=torch.float32, device=dev)
-                       / float(max(L, 1)), 0.0, 1.0)[:, None]
+                       / torch.full((), float(max(L, 1)), device=dev),
+                       0.0, 1.0)[:, None]
     anchor_ref = lambda: map_msk & (slot_ids == 0)
     r1s = None
     for _round in range(2):

@@ -18,7 +18,7 @@ import math
 
 import torch
 
-from .. import divide
+from ..xlamath import atan2, hypot, mul_reciprocal
 N_RINGS = 16
 N_SECTORS = 64
 
@@ -34,12 +34,14 @@ def scan_context(pts: torch.Tensor, mask: torch.Tensor,
     """
     batch = pts.shape[:-2]
     x, y, z = pts[..., 0], pts[..., 1], pts[..., 2]
-    r = torch.hypot(x, y)
-    ring = torch.clamp((divide(r, max_range) * n_rings).to(torch.int32), 0,
-                       n_rings - 1)
-    theta = torch.atan2(y, x)                  # [-pi, pi)
+    r = hypot(x, y)
+    ring = torch.clamp(
+        (mul_reciprocal(r, max_range) * n_rings).to(torch.int32), 0,
+        n_rings - 1)
+    theta = atan2(y, x)                        # [-pi, pi)
     sector = torch.clamp(
-        (divide(theta + math.pi, 2.0 * math.pi) * n_sectors).to(torch.int32),
+        (mul_reciprocal(theta + math.pi, 2.0 * math.pi)
+         * n_sectors).to(torch.int32),
         0, n_sectors - 1)
     RS = n_rings * n_sectors
     seg = (ring * n_sectors + sector).long().reshape(-1, pts.shape[-2])

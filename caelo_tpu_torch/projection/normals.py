@@ -16,17 +16,18 @@ import torch.nn.functional as F
 
 from ..config import SensorConfig
 from ..ops.nms import top_k
+from ..xlamath import mul_reciprocal
 
 
 def _smallest_eigvec_sym3x3(axx, axy, axz, ayy, ayz, azz):
     """Closed-form smallest eigenpair of symmetric 3x3 matrices given as six
     scalar planes.  Returns ``(lam0, lam1, nx, ny, nz)``: the two smallest
     eigenvalues and the unit eigenvector of ``lam0``."""
-    q = (axx + ayy + azz) / 3.0
+    q = mul_reciprocal(axx + ayy + azz, 3.0)
     p1 = axy * axy + axz * axz + ayz * ayz
     bxx, byy, bzz = axx - q, ayy - q, azz - q
     p2 = bxx * bxx + byy * byy + bzz * bzz + 2.0 * p1
-    p = torch.sqrt(torch.clamp_min(p2, 1e-30) / 6.0)
+    p = torch.sqrt(mul_reciprocal(torch.clamp_min(p2, 1e-30), 6.0))
     ip = 1.0 / p
     cxx, cyy, czz = bxx * ip, byy * ip, bzz * ip
     cxy, cxz, cyz = axy * ip, axz * ip, ayz * ip
@@ -34,7 +35,7 @@ def _smallest_eigvec_sym3x3(axx, axy, axz, ayy, ayz, azz):
             - cxy * (cxy * czz - cyz * cxz)
             + cxz * (cxy * cyz - cyy * cxz))
     r = torch.clamp(detB / 2.0, -1.0, 1.0)
-    phi = torch.arccos(r) / 3.0
+    phi = mul_reciprocal(torch.arccos(r), 3.0)
     lam_hi = q + 2.0 * p * torch.cos(phi)
     lam_lo = q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)
     lam_mid = 3.0 * q - lam_hi - lam_lo

@@ -11,8 +11,9 @@ import math
 
 import torch
 
-from .. import divide
 from ..config import SensorConfig
+from ..xlamath import (asin_base, atan2, fma32, mul_reciprocal,
+                       mul_reciprocal_add, sqrt32)
 
 _INT32_MAX = 2 ** 31 - 1
 
@@ -23,14 +24,20 @@ def ring_bins(pts: torch.Tensor, mask: torch.Tensor,
     in_bounds)``, ``row`` and ``col`` int32 (``col`` clamped to the
     image)."""
     x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
-    r = torch.sqrt(x * x + y * y + z * z)
+    # JAX's x * x + y * y + z * z, contracted by XLA's CPU into fused
+    # multiply-adds
+    r = sqrt32(fma32(z, z, fma32(x, x, y * y)))
     valid = mask & (r > 0)
     rsafe = torch.where(valid, r, 1.0)
-    col = torch.floor(divide(math.pi - torch.atan2(y, x), cfg.azimuth_res)
-                      ).to(torch.int32)
-    beta = torch.arcsin(torch.clamp(z / rsafe, -1.0, 1.0))
-    row = cfg.img_h - torch.floor(divide(beta, cfg.vertical_res)
-                                  + cfg.vertical_pixel_offset).to(torch.int32)
+    # the column's atan2 and the elevation's asin(u) = 2 atan2(u, base)
+    # in one call
+    u = torch.clamp(z / rsafe, -1.0, 1.0)
+    ang = atan2(torch.cat([y, u]), torch.cat([x, asin_base(u)]))
+    col = torch.floor(mul_reciprocal(math.pi - ang[:len(u)],
+                                     cfg.azimuth_res)).to(torch.int32)
+    beta = ang[len(u):] + ang[len(u):]
+    row = cfg.img_h - torch.floor(mul_reciprocal_add(
+        beta, cfg.vertical_res, cfg.vertical_pixel_offset)).to(torch.int32)
     col = torch.clamp(col, 0, cfg.img_w - 1)
     return r, row, col, valid & (row >= 0) & (row < cfg.img_h)
 
@@ -64,9 +71,10 @@ def project_to_spherical_ring(pts: torch.Tensor, mask: torch.Tensor,
     occupied = win != _INT32_MAX
     winner = torch.where(occupied, win & ((1 << idx_bits) - 1), 0).long()
     g = pts[winner, :4]
-    # the range channel is recomputed from the winner's own x, y, z with the
-    # same expression that produced ``r``
-    rw = torch.sqrt(g[:, 0] * g[:, 0] + g[:, 1] * g[:, 1] + g[:, 2] * g[:, 2])
+    # the range channel is recomputed from the winner's own x, y, z; JAX
+    # sums the three as a reduction, which contracts in another order
+    gx, gy, gz = g[:, 0], g[:, 1], g[:, 2]
+    rw = sqrt32(fma32(gz, gz, fma32(gy, gy, gx * gx)))
     image = torch.where(occupied[:, None], torch.cat([g, rw[:, None]], 1), 0.0)
     image = image.reshape(H, W, 5)
 

@@ -28,11 +28,11 @@ from typing import NamedTuple
 
 import torch
 
-from .. import divide
 from ..config import VoxelConfig
 from ..ops.masking import compact
 from ..ops.plane_gather import (patches_from_planes,
                                 patches_from_planes_plain)
+from ..xlamath import mul_reciprocal
 
 _INT32_MAX = 2 ** 31 - 1
 _INT64_MAX = 2 ** 63 - 1
@@ -98,7 +98,7 @@ def voxelize(pts: torch.Tensor, mask: torch.Tensor,
     lbits = 3 * pbits
     coords, masks, counts = [], [], []
     for s, vs in enumerate(cfg.voxel_sizes):
-        c = torch.floor(divide(shifted, vs)).to(torch.int32)
+        c = torch.floor(mul_reciprocal(shifted, vs)).to(torch.int32)
         g = torch.tensor(cfg.grid_shape(s), dtype=torch.int32,
                          device=pts.device)
         ok = inb & ((c >= 0) & (c < g)).all(1)
@@ -132,7 +132,7 @@ def keypoint_voxels(key_pts: torch.Tensor, scale: int,
     half = torch.tensor([cfg.visible_length, cfg.visible_width,
                          cfg.visible_height], dtype=torch.float32,
                         device=key_pts.device)
-    return torch.floor(divide(key_pts + half, cfg.voxel_sizes[scale])
+    return torch.floor(mul_reciprocal(key_pts + half, cfg.voxel_sizes[scale])
                        ).to(torch.int32)
 
 

@@ -204,8 +204,9 @@ WINDOW_REPS = 3      # warm window timings
 BF16_SHARED = 0.95
 BF16_DESC_TOL = 2.0 ** -8
 # phase 11b: the card bins coordinates into voxels as the CPU does (both
-# divide; ROADMAP.md §3, fixed): the share of a scale's voxels, of the
-# points and of the keypoints that may fall in another voxel is 0
+# multiply by the voxel size's float32 reciprocal, as jitted JAX does;
+# ROADMAP.md §3, fixed): the share of a scale's voxels, of the points and
+# of the keypoints that may fall in another voxel is 0
 BIN_SHARE = 0
 # phase 11b: a point may fall in another ring-image cell on the card only
 # where atan2 / asin put it within this relative distance of a bin edge

@@ -4,7 +4,7 @@ with no occupied neighbour, all-masked keypoints, clamped slots), one
 frame's features and registration, the batched hybrid ICP, the burst map
 ICP, a full-width train step of each auto-encoder and the patch trainer's
 data path, the keypoint baselines and ``features_from_keypoints`` (K2 at
-each scale), on the card against the CPU path; the binning division on
+each scale), on the card against the CPU path; the binning products on
 the card against the CPU's at bin edges; every sharded path in a NCCL
 world of one rank (``dryrun_multigpu(1, "cuda")``); ``cli selftest``
 on the card; and ``examples.hard_benchmark`` on 12 ray-cast frames on the
@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from caelo_tpu_torch import divide, setup_device
+from caelo_tpu_torch import setup_device
 from caelo_tpu_torch.backend.burst import burst_map_icp
 from caelo_tpu_torch.backend.icp import icp_hybrid
 from caelo_tpu_torch.config import (IcpConfig, KeypointConfig, SensorConfig,
@@ -39,6 +39,8 @@ from caelo_tpu_torch.ops.plane_gather import (patches_from_planes,
 from caelo_tpu_torch.ops.saliency import (keypoint_score,
                                           keypoint_score_plain, saliency_map,
                                           saliency_map_plain)
+from caelo_tpu_torch.xlamath import (asin, atan2, hypot, mul_reciprocal,
+                                     mul_reciprocal_add)
 
 pytestmark = pytest.mark.gpu
 
@@ -520,10 +522,10 @@ def test_cli_selftest_on_card(cuda, capsys):
 
 @pytest.mark.parametrize("d", [0.02, 0.16, 0.64, np.radians(0.2),
                                np.radians(26.9) / 63, 80.0, 2 * np.pi])
-def test_divide_on_card_bins_as_cpu(cuda, rng, d):
+def test_mul_reciprocal_on_card_bins_as_cpu(cuda, rng, d):
     """10^5 float32 coordinates within 2 units of a bin edge: the card's
-    quotient (a 0-d divisor on the card: a division, not a product with
-    the reciprocal) equals the CPU's bit for bit."""
+    product with the divisor's reciprocal, and the ring image's fused
+    ``x / d + offset``, equal the CPU's bit for bit."""
     x = (rng.integers(-5000, 5000, 100_000) * np.float32(d)).astype(np.float32)
     for _ in range(2):
         step = rng.integers(-1, 2, x.shape)
@@ -531,8 +533,26 @@ def test_divide_on_card_bins_as_cpu(cuda, rng, d):
                      np.where(step < 0, np.nextafter(x, np.float32(-np.inf)),
                               x)).astype(np.float32)
     xt = torch.from_numpy(x)
-    np.testing.assert_array_equal(divide(xt.to(cuda), d).cpu().numpy(),
-                                  divide(xt, d).numpy())
+    np.testing.assert_array_equal(mul_reciprocal(xt.to(cuda), d).cpu().numpy(),
+                                  mul_reciprocal(xt, d).numpy())
+    off = SensorConfig().vertical_pixel_offset
+    np.testing.assert_array_equal(
+        mul_reciprocal_add(xt.to(cuda), d, off).cpu().numpy(),
+        mul_reciprocal_add(xt, d, off).numpy())
+
+
+def test_angle_and_range_functions_on_card_as_cpu(cuda, rng):
+    """``xlamath``'s ``atan2``, ``asin`` and ``hypot`` (plain float32 and
+    float64 ops, XLA's CPU rounding) give on the card the CPU's bits, on
+    10^5 values over 12 decades."""
+    n = 100_000
+    y, x = ((rng.normal(size=n) * 10.0 ** rng.uniform(-6, 6, n)).astype(
+        np.float32) for _ in range(2))
+    u = rng.uniform(-1, 1, n).astype(np.float32)
+    for fn, args in ((atan2, (y, x)), (hypot, (y, x)), (asin, (u,))):
+        ts = [torch.from_numpy(a) for a in args]
+        np.testing.assert_array_equal(
+            fn(*(t.to(cuda) for t in ts)).cpu().numpy(), fn(*ts).numpy())
 
 
 def test_sharded_paths_in_a_nccl_world_of_one(cuda):

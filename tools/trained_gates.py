@@ -15,7 +15,8 @@ gate the full pipeline with the trained weights on one CUDA device.
 3. ``python -m caelo_tpu_torch.examples.hard_benchmark --weights
    <out>/weights`` at seed 0: clean, clean with ``--candidate-source
    scancontext``, ``--degraded`` and ``--degraded-turn``, each writing
-   ``<out>/<run>.json``.
+   ``<out>/<run>.json``; ``--runs clean,...`` runs those named only (and
+   makes only their scenes' caches).
 
 With ``--weights DIR`` the study is skipped (and the training caches are
 not made) and DIR's checkpoints are gated; ``--pipeline-seed`` is passed
@@ -42,9 +43,12 @@ CACHE = os.path.join(REPO, "runs", "hb_cache")
 FRAMES = 520        # the circuit of every scene, as the reference gates it
 # (seed, degraded, degraded_turn): two scenes to train on, three to gate
 TRAIN_SCENES = [(1, False, False), (2, False, True)]
-GATE_SCENES = [(0, False, False), (0, True, False), (0, False, True)]
-GATE_RUNS = {"clean": [], "clean_sc": ["--candidate-source", "scancontext"],
-             "degraded": ["--degraded"], "degraded_turn": ["--degraded-turn"]}
+# each gate run: its scene and its flags
+GATE_RUNS = {
+    "clean": ((0, False, False), []),
+    "clean_sc": ((0, False, False), ["--candidate-source", "scancontext"]),
+    "degraded": ((0, True, False), ["--degraded"]),
+    "degraded_turn": ((0, False, True), ["--degraded-turn"])}
 
 
 def make_cache(seed, degraded, degraded_turn):
@@ -79,7 +83,14 @@ def main():
     ap.add_argument("--pipeline-seed", type=int, default=-1,
                     help="registration seed of the gate runs (default: "
                          "the scene's, 0)")
+    ap.add_argument("--runs", default=",".join(GATE_RUNS),
+                    help="comma-separated gate runs (default: all of "
+                         f"{', '.join(GATE_RUNS)})")
     args = ap.parse_args()
+    runs = args.runs.split(",")
+    if not set(runs) <= set(GATE_RUNS):
+        sys.exit(f"trained_gates: --runs {args.runs}: not in "
+                 f"{list(GATE_RUNS)}")
     import torch
 
     if not torch.cuda.is_available():
@@ -94,7 +105,7 @@ def main():
     summary = {"card": card, "frames": FRAMES}
 
     train_scenes = [] if args.weights else TRAIN_SCENES
-    scenes = train_scenes + GATE_SCENES
+    scenes = train_scenes + sorted({GATE_RUNS[r][0] for r in runs})
     t0 = time.perf_counter()
     with ProcessPoolExecutor(len(scenes),
                              mp_context=get_context("spawn")) as pool:
@@ -117,7 +128,8 @@ def main():
             sys.exit(f"trained_gates: the study exited {rc}")
 
     failed = []
-    for run, flags in GATE_RUNS.items():
+    for run in runs:
+        flags = GATE_RUNS[run][1]
         rc, secs = run_example("hard_benchmark", [
             "--frames", str(FRAMES), "--weights", weights,
             "--scan-cache", CACHE, "--pipeline-seed", str(args.pipeline_seed),
