@@ -23,6 +23,7 @@ import torch
 
 from ..config import PipelineConfig
 from ..models.patch_encoder import PatchEncoder
+from ..utils.telemetry import span
 from .baselines import (harris3d_keypoints, iss_keypoints, random_keypoints,
                         sift3d_keypoints)
 from .registration import (FrameFeatures, describe_keypoints,
@@ -72,14 +73,17 @@ def make_ablation_feature_fn(source: KeypointSource, respond_net, encoder,
     n_kp = cfg.keypoint.n_keypoints
 
     def fn(pts, mask):
-        pts, mask = on(pts), on(mask)
-        xyz = pts[:, :3].contiguous()
-        if source == "random":
-            res = random_keypoints(torch.Generator(device).manual_seed(seed),
-                                   xyz, mask, n_keypoints=n_kp)
-        else:
-            res = _DETECTORS[source](xyz, mask, n_keypoints=n_kp)
-        return features_from_keypoints(encoder, pts, mask, res.key_pts,
-                                       res.key_mask, cfg)
+        with span("caelo.frontend.extract"):
+            pts, mask = on(pts), on(mask)
+            xyz = pts[:, :3].contiguous()
+            with span("caelo.frontend.detect"):
+                if source == "random":
+                    res = random_keypoints(
+                        torch.Generator(device).manual_seed(seed), xyz, mask,
+                        n_keypoints=n_kp)
+                else:
+                    res = _DETECTORS[source](xyz, mask, n_keypoints=n_kp)
+            return features_from_keypoints(encoder, pts, mask, res.key_pts,
+                                           res.key_mask, cfg)
 
     return fn

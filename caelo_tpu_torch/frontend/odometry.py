@@ -20,6 +20,7 @@ from ..config import PipelineConfig
 from .. import setup_device
 from ..geometry.kitti_pose import chain_poses
 from ..parallel.pipeline import make_sequence_processor
+from ..utils.telemetry import span
 from .registration import (FrameFeatures, extract_frame_features,
                            register_pair, register_pair_with_prior)
 
@@ -87,35 +88,40 @@ def run_odometry(scans: Iterable, respond_net, encoder, R_tr=None, t_tr=None,
     prev_feat: FrameFeatures | None = None
     prevR, prevT = np.eye(3), np.zeros(3)
     for i, (pts, mask) in enumerate(scans):
-        feat = feature_fn(pts, mask)
-        if prev_feat is not None:
-            reg = register_pair(prev_feat, feat, cfg, generator=generator,
-                                samples=draw(i - 1, 0))
-            ok = bool(reg.success)
-            if not ok and cfg.prior_gate_m > 0.0:
-                # retry with the constant-velocity motion prior gating the
-                # candidate matches (GenerateTrajactory.m:210 semantics)
-                prior = lambda a: torch.as_tensor(a, dtype=torch.float32,
-                                                  device=device)
-                reg = register_pair_with_prior(
-                    prev_feat, feat, prior(prevR), prior(prevT), cfg,
-                    generator=generator, samples=draw(i - 1, 1))
+        # the frame's span closes before progress(i): a caller may start
+        # or stop a profiler there
+        with span("caelo.odometry.frame"):
+            feat = feature_fn(pts, mask)
+            if prev_feat is not None:
+                reg = register_pair(prev_feat, feat, cfg, generator=generator,
+                                    samples=draw(i - 1, 0))
                 ok = bool(reg.success)
-            R = reg.R.double().cpu().numpy()
-            t = reg.t.double().cpu().numpy()
-            ok = ok and _plausible(R, t, cfg)
-            if not ok:
-                R, t = prevR, prevT           # constant-velocity fallback
-            inl = reg.inlier_mask.cpu().numpy()
-            pairs.append((reg.inlier_idx0.cpu().numpy()[inl],
-                          reg.inlier_idx1.cpu().numpy()[inl]))
-            rel_Rs.append(R)
-            rel_ts.append(t)
-            succ.append(ok)
-            n_inl.append(int(reg.n_inliers))
-            ths.append(float(reg.threshold))
-            prevR, prevT = R, t
-        prev_feat = feat
+                if not ok and cfg.prior_gate_m > 0.0:
+                    # retry with the constant-velocity motion prior gating
+                    # the candidate matches (GenerateTrajactory.m:210
+                    # semantics)
+                    with span("caelo.register.retry"):
+                        prior = lambda a: torch.as_tensor(
+                            a, dtype=torch.float32, device=device)
+                        reg = register_pair_with_prior(
+                            prev_feat, feat, prior(prevR), prior(prevT), cfg,
+                            generator=generator, samples=draw(i - 1, 1))
+                        ok = bool(reg.success)
+                R = reg.R.double().cpu().numpy()
+                t = reg.t.double().cpu().numpy()
+                ok = ok and _plausible(R, t, cfg)
+                if not ok:
+                    R, t = prevR, prevT       # constant-velocity fallback
+                inl = reg.inlier_mask.cpu().numpy()
+                pairs.append((reg.inlier_idx0.cpu().numpy()[inl],
+                              reg.inlier_idx1.cpu().numpy()[inl]))
+                rel_Rs.append(R)
+                rel_ts.append(t)
+                succ.append(ok)
+                n_inl.append(int(reg.n_inliers))
+                ths.append(float(reg.threshold))
+                prevR, prevT = R, t
+            prev_feat = feat
         if progress is not None:
             progress(i)
 
@@ -157,11 +163,12 @@ def staged_windows(scans, n: int, window: int, pin: bool = False,
         return torch.stack(xs, out=out)
 
     def stage(start):
-        stop = min(start + window, n)
-        frames = [scans[i] for i in range(start, stop)]
-        pts = stack([torch.as_tensor(p) for p, _ in frames])
-        msk = stack([torch.as_tensor(m) for _, m in frames])
-        return start, stop, pts, msk
+        with span("caelo.odometry.stage"):
+            stop = min(start + window, n)
+            frames = [scans[i] for i in range(start, stop)]
+            pts = stack([torch.as_tensor(p) for p, _ in frames])
+            msk = stack([torch.as_tensor(m) for _, m in frames])
+            return start, stop, pts, msk
 
     starts = window_starts(n, window)
     if not threaded:
@@ -271,36 +278,41 @@ def run_odometry_windowed(scans, respond_net, encoder, R_tr=None, t_tr=None,
     for start, stop, pts, msk in staged_windows(
             scans, n, window, pin=device.type == "cuda",
             threaded=threaded_staging):
-        pts = pts.to(device, non_blocking=True)
-        msk = msk.to(device, non_blocking=True)
-        win_samples = None
-        if samples is not None:
-            win_samples = tuple(torch.as_tensor(s[start:stop - 1])
-                                for s in samples)
-        out = process(respond_net, encoder, pts, msk, generator, win_samples)
-        feats, regs = out[0], out[-1]
-        R_all = regs.R.double().cpu().numpy()
-        t_all = regs.t.double().cpu().numpy()
-        s_all = regs.success.cpu().numpy()
-        ni_all = regs.n_inliers.cpu().numpy()
-        th_all = regs.threshold.cpu().numpy()
-        inl_mask = regs.inlier_mask.cpu().numpy()
-        idx0 = regs.inlier_idx0.cpu().numpy()
-        idx1 = regs.inlier_idx1.cpu().numpy()
-        for k in range(stop - start - 1):
-            g = start + k
-            rel_Rs[g] = R_all[k]
-            rel_ts[g] = t_all[k]
-            succ[g] = bool(s_all[k]) and _plausible(R_all[k], t_all[k], cfg)
-            n_inl[g] = int(ni_all[k])
-            ths[g] = float(th_all[k])
-            pairs[g] = (idx0[k][inl_mask[k]], idx1[k][inl_mask[k]])
-        if keep_features:
-            j0 = 0 if start == 0 else 1         # drop the overlap frame
-            feat_windows.append(FrameFeatures(*(x[j0:] for x in feats)))
-            if keep_refine_features:
-                ref_windows.append(RefinementFeatures(
-                    *(x[j0:] for x in out[1])))
+        # from the copy to the card to the read-backs, closed before
+        # progress
+        with span("caelo.odometry.window"):
+            pts = pts.to(device, non_blocking=True)
+            msk = msk.to(device, non_blocking=True)
+            win_samples = None
+            if samples is not None:
+                win_samples = tuple(torch.as_tensor(s[start:stop - 1])
+                                    for s in samples)
+            out = process(respond_net, encoder, pts, msk, generator,
+                          win_samples)
+            feats, regs = out[0], out[-1]
+            R_all = regs.R.double().cpu().numpy()
+            t_all = regs.t.double().cpu().numpy()
+            s_all = regs.success.cpu().numpy()
+            ni_all = regs.n_inliers.cpu().numpy()
+            th_all = regs.threshold.cpu().numpy()
+            inl_mask = regs.inlier_mask.cpu().numpy()
+            idx0 = regs.inlier_idx0.cpu().numpy()
+            idx1 = regs.inlier_idx1.cpu().numpy()
+            for k in range(stop - start - 1):
+                g = start + k
+                rel_Rs[g] = R_all[k]
+                rel_ts[g] = t_all[k]
+                succ[g] = bool(s_all[k]) and _plausible(R_all[k], t_all[k],
+                                                        cfg)
+                n_inl[g] = int(ni_all[k])
+                ths[g] = float(th_all[k])
+                pairs[g] = (idx0[k][inl_mask[k]], idx1[k][inl_mask[k]])
+            if keep_features:
+                j0 = 0 if start == 0 else 1         # drop the overlap frame
+                feat_windows.append(FrameFeatures(*(x[j0:] for x in feats)))
+                if keep_refine_features:
+                    ref_windows.append(RefinementFeatures(
+                        *(x[j0:] for x in out[1])))
         if progress is not None:
             progress(stop - 1)
 

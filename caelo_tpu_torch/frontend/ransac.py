@@ -16,6 +16,7 @@ import torch
 
 from ..config import RansacConfig
 from ..geometry import se3
+from ..utils.telemetry import span
 
 _INF = float("inf")
 
@@ -108,80 +109,89 @@ def ransac_rigid(pairs0: torch.Tensor, pairs1: torch.Tensor,
     pm = pair_mask.reshape(-1, K)
     B = p0.shape[0]
     if samples is None:
-        pd = None if pair_dist is None else pair_dist.reshape(-1, K)
-        samples = draw_samples(sample_candidates(pm, pd, cfg), cfg, generator)
-    samp = samples.to(p0.device, torch.int64).reshape(B, H * S, 1).expand(
-        B, H * S, 3)
-    n_valid = pm.sum(-1)
-    bidx = torch.arange(B, device=p0.device)
-
+        with span("caelo.ransac.draw"):
+            pd = None if pair_dist is None else pair_dist.reshape(-1, K)
+            samples = draw_samples(sample_candidates(pm, pd, cfg), cfg,
+                                   generator)
     # --- solve all hypotheses: every entry below is a (B, H) plane
-    s0 = p0.gather(1, samp).view(B, H, S, 3)
-    s1 = p1.gather(1, samp).view(B, H, S, 3)
-    mean0 = s0.mean(2)                                  # (B, H, 3)
-    mean1 = s1.mean(2)
-    q0 = s0 - mean0[:, :, None]
-    q1 = s1 - mean1[:, :, None]
-    M = [[(q1[..., i] * q0[..., j]).sum(-1).reshape(-1) for j in range(3)]
-         for i in range(3)]
-    quat = se3.max_eigvec_sym4x4_lanes(_horn_N_lanes(M)).view(4, B, H)
-    r = _quat_to_rot_entries(quat)                      # r[i][j]: (B, H)
-    t_l = [mean0[..., i] - sum(r[i][j] * mean1[..., j] for j in range(3))
-           for i in range(3)]
+    with span("caelo.ransac.solve"):
+        samp = samples.to(p0.device, torch.int64).reshape(
+            B, H * S, 1).expand(B, H * S, 3)
+        s0 = p0.gather(1, samp).view(B, H, S, 3)
+        s1 = p1.gather(1, samp).view(B, H, S, 3)
+        mean0 = s0.mean(2)                                  # (B, H, 3)
+        mean1 = s1.mean(2)
+        q0 = s0 - mean0[:, :, None]
+        q1 = s1 - mean1[:, :, None]
+        M = [[(q1[..., i] * q0[..., j]).sum(-1).reshape(-1)
+              for j in range(3)] for i in range(3)]
+        quat = se3.max_eigvec_sym4x4_lanes(_horn_N_lanes(M)).view(4, B, H)
+        r = _quat_to_rot_entries(quat)                  # r[i][j]: (B, H)
+        t_l = [mean0[..., i]
+               - sum(r[i][j] * mean1[..., j] for j in range(3))
+               for i in range(3)]
 
-    # residuals of every hypothesis on every pair: (B, H, K)
-    d2 = torch.zeros((B, H, K), dtype=p0.dtype, device=p0.device)
-    for i in range(3):
-        pred_i = (r[i][0][..., None] * p1[:, None, :, 0]
-                  + r[i][1][..., None] * p1[:, None, :, 1]
-                  + r[i][2][..., None] * p1[:, None, :, 2]
-                  + t_l[i][..., None])
-        diff = pred_i - p0[:, None, :, i]
-        d2 = d2 + diff * diff
+    # --- residuals of every hypothesis on every pair, the rung counts and
+    # the winner
+    with span("caelo.ransac.score"):
+        n_valid = pm.sum(-1)
+        bidx = torch.arange(B, device=p0.device)
+        d2 = torch.zeros((B, H, K), dtype=p0.dtype, device=p0.device)
+        for i in range(3):
+            pred_i = (r[i][0][..., None] * p1[:, None, :, 0]
+                      + r[i][1][..., None] * p1[:, None, :, 1]
+                      + r[i][2][..., None] * p1[:, None, :, 2]
+                      + t_l[i][..., None])
+            diff = pred_i - p0[:, None, :, i]
+            d2 = d2 + diff * diff                       # (B, H, K)
 
-    thresholds = torch.tensor(cfg.residual_thresholds, dtype=torch.float32,
-                              device=p0.device)
-    T = thresholds.shape[0]
-    d2m = torch.where(pm[:, None, :], d2, _INF)
-    counts = torch.stack([(d2m < th * th).sum(-1)
-                          for th in cfg.residual_thresholds])   # (T, B, H)
-    Rs = torch.stack([torch.stack(r[i], -1) for i in range(3)], -2)  # (B,H,3,3)
-    ts = torch.stack(t_l, -1)                                      # (B, H, 3)
+        thresholds = torch.tensor(cfg.residual_thresholds,
+                                  dtype=torch.float32, device=p0.device)
+        T = thresholds.shape[0]
+        d2m = torch.where(pm[:, None, :], d2, _INF)
+        counts = torch.stack([(d2m < th * th).sum(-1)
+                              for th in cfg.residual_thresholds])  # (T, B, H)
+        Rs = torch.stack([torch.stack(r[i], -1)
+                          for i in range(3)], -2)               # (B, H, 3, 3)
+        ts = torch.stack(t_l, -1)                               # (B, H, 3)
 
-    least = torch.clamp_max(
-        (cfg.min_inlier_frac * n_valid.to(torch.float32)).to(torch.int64),
-        cfg.min_inlier_abs)
-    least = torch.clamp_min(least, S + 1)                          # (B,)
+        least = torch.clamp_max(
+            (cfg.min_inlier_frac * n_valid.to(torch.float32)).to(torch.int64),
+            cfg.min_inlier_abs)
+        least = torch.clamp_min(least, S + 1)                   # (B,)
 
-    best_h = torch.argmax(counts, -1)                              # (T, B)
-    best_c = counts.gather(-1, best_h[..., None])[..., 0]
-    rung_ok = best_c >= least
-    rung = torch.where(rung_ok.any(0), torch.argmax(rung_ok.to(torch.uint8), 0),
-                       T - 1)                                      # (B,)
-    h = best_h[rung, bidx]
-    success = rung_ok[rung, bidx]
-    inlier_mask = d2m[bidx, h] < (thresholds[rung] ** 2)[:, None]
-    # --- least-squares refit on the winning inlier set
-    R_fit, t_fit = se3.solve_rigid_horn(p0, p1, inlier_mask.to(p0.dtype))
+        best_h = torch.argmax(counts, -1)                       # (T, B)
+        best_c = counts.gather(-1, best_h[..., None])[..., 0]
+        rung_ok = best_c >= least
+        rung = torch.where(rung_ok.any(0),
+                           torch.argmax(rung_ok.to(torch.uint8), 0),
+                           T - 1)                               # (B,)
+        h = best_h[rung, bidx]
+        success = rung_ok[rung, bidx]
+        inlier_mask = d2m[bidx, h] < (thresholds[rung] ** 2)[:, None]
 
-    # --- refit tightening: re-gate at the smallest rung the refit pose
-    # supports and refit again
-    if cfg.refit_iters > 0:
-        R_c, t_c, rung_c, mask_c = R_fit, t_fit, rung, inlier_mask
-        for _ in range(cfg.refit_iters):
-            pred = torch.einsum("bij,bkj->bki", R_c, p1) + t_c[:, None]
-            d2p = torch.where(pm, ((pred - p0) ** 2).sum(-1), _INF)
-            counts_p = torch.stack([(d2p < th * th).sum(-1)
-                                    for th in cfg.residual_thresholds])
-            ok_p = counts_p >= least
-            rung_c = torch.where(ok_p.any(0),
-                                 torch.argmax(ok_p.to(torch.uint8), 0), rung_c)
-            mask_c = d2p < (thresholds[rung_c] ** 2)[:, None]
-            R_c, t_c = se3.solve_rigid_horn(p0, p1, mask_c.to(p0.dtype))
-        R_fit = torch.where(success[:, None, None], R_c, R_fit)
-        t_fit = torch.where(success[:, None], t_c, t_fit)
-        rung = torch.where(success, rung_c, rung)
-        inlier_mask = torch.where(success[:, None], mask_c, inlier_mask)
+    # --- least-squares refit on the winning inlier set, then the refit
+    # tightening: re-gate at the smallest rung the refit pose supports and
+    # refit again
+    with span("caelo.ransac.refit"):
+        R_fit, t_fit = se3.solve_rigid_horn(p0, p1, inlier_mask.to(p0.dtype))
+        if cfg.refit_iters > 0:
+            R_c, t_c, rung_c, mask_c = R_fit, t_fit, rung, inlier_mask
+            for _ in range(cfg.refit_iters):
+                pred = torch.einsum("bij,bkj->bki", R_c, p1) + t_c[:, None]
+                d2p = torch.where(pm, ((pred - p0) ** 2).sum(-1), _INF)
+                counts_p = torch.stack([(d2p < th * th).sum(-1)
+                                        for th in cfg.residual_thresholds])
+                ok_p = counts_p >= least
+                rung_c = torch.where(ok_p.any(0),
+                                     torch.argmax(ok_p.to(torch.uint8), 0),
+                                     rung_c)
+                mask_c = d2p < (thresholds[rung_c] ** 2)[:, None]
+                R_c, t_c = se3.solve_rigid_horn(p0, p1, mask_c.to(p0.dtype))
+            R_fit = torch.where(success[:, None, None], R_c, R_fit)
+            t_fit = torch.where(success[:, None], t_c, t_fit)
+            rung = torch.where(success, rung_c, rung)
+            inlier_mask = torch.where(success[:, None], mask_c, inlier_mask)
 
     R = torch.where(success[:, None, None], R_fit, Rs[bidx, h])
     t = torch.where(success[:, None], t_fit, ts[bidx, h])

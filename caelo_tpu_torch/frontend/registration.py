@@ -30,6 +30,7 @@ from ..models.patch_encoder import PatchEncoder
 from ..models.respond_net import RespondLayer
 from ..ops.nms import select_keypoints_planes
 from ..projection.spherical import model_input, project_to_spherical_ring
+from ..utils.telemetry import span
 from ..voxel.grid import extract_patches, voxelize
 from .matching import match_descriptors
 from .ransac import RansacResult, ransac_rigid
@@ -105,19 +106,26 @@ def _extract(respond_net: RespondLayer, encoder: PatchEncoder,
     # any compute_dtype but "bfloat16" is float32, as in the JAX version
     dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
              else torch.float32)
-    image, counter = project_to_spherical_ring(pts, mask, cfg.sensor)
-    net_in = model_input(image, cfg.sensor).permute(2, 0, 1)[None]
-    # (8, H, W) NCHW planes, float32 whatever the net ran in: K1 reads them
-    planes = run_in(respond_net, net_in, dtype)[0]
-    key_pts, key_pixels, key_mask, saliency = select_keypoints_planes(
-        image, counter, planes, cfg.sensor, cfg.keypoint)
-    ref_feats = None
-    if with_refine:
-        ref_feats = refinement_features(pts, mask, image, counter, key_pixels,
-                                        key_mask, saliency, cfg)
-    descriptors = describe_keypoints(encoder, pts, mask, key_pts, key_mask,
-                                     cfg, dtype)
-    return FrameFeatures(key_pts, descriptors, key_mask, key_pixels), ref_feats
+    with span("caelo.frontend.extract"):
+        with span("caelo.frontend.project"):
+            image, counter = project_to_spherical_ring(pts, mask, cfg.sensor)
+            net_in = model_input(image, cfg.sensor).permute(2, 0, 1)[None]
+        # (8, H, W) NCHW planes, float32 whatever the net ran in: K1 reads
+        # them
+        with span("caelo.frontend.respond"):
+            planes = run_in(respond_net, net_in, dtype)[0]
+        with span("caelo.frontend.select"):
+            key_pts, key_pixels, key_mask, saliency = select_keypoints_planes(
+                image, counter, planes, cfg.sensor, cfg.keypoint)
+        ref_feats = None
+        if with_refine:
+            ref_feats = refinement_features(pts, mask, image, counter,
+                                            key_pixels, key_mask, saliency,
+                                            cfg)
+        descriptors = describe_keypoints(encoder, pts, mask, key_pts,
+                                         key_mask, cfg, dtype)
+        return (FrameFeatures(key_pts, descriptors, key_mask, key_pixels),
+                ref_feats)
 
 
 def describe_keypoints(encoder: PatchEncoder, pts: torch.Tensor,
@@ -128,18 +136,21 @@ def describe_keypoints(encoder: PatchEncoder, pts: torch.Tensor,
     ``key_pts`` in the padded scan: voxel pyramid, patches (K2 at each
     bit-table scale), encoder in ``dtype``; zero where ``key_mask`` is
     false."""
-    pyramid = voxelize(pts[:, :3], mask, cfg.voxel)
-    patches = extract_patches(key_pts, key_mask, pyramid, cfg.voxel)
+    with span("caelo.frontend.voxelize"):
+        pyramid = voxelize(pts[:, :3], mask, cfg.voxel)
+    with span("caelo.frontend.patch_query"):
+        patches = extract_patches(key_pts, key_mask, pyramid, cfg.voxel)
     # one encoder pass over all 3 scales stacked on the batch axis, in
     # chunks of encoder_chunk patches to bound the conv activations
     K = patches[0].shape[0]
-    stacked = torch.cat(patches, 0)
-    ck = cfg.encoder_chunk
-    if ck and stacked.shape[0] > ck and stacked.shape[0] % ck == 0:
-        codes = torch.cat([run_in(encoder, c, dtype)
-                           for c in stacked.split(ck)])
-    else:
-        codes = run_in(encoder, stacked, dtype)
+    with span("caelo.frontend.encode"):
+        stacked = torch.cat(patches, 0)
+        ck = cfg.encoder_chunk
+        if ck and stacked.shape[0] > ck and stacked.shape[0] % ck == 0:
+            codes = torch.cat([run_in(encoder, c, dtype)
+                               for c in stacked.split(ck)])
+        else:
+            codes = run_in(encoder, stacked, dtype)
     descriptors = torch.cat([codes[i * K:(i + 1) * K]
                              for i in range(len(patches))], -1)
     return torch.where(key_mask[:, None], descriptors, 0.0)
@@ -176,22 +187,24 @@ def extract_frame_features_full(respond_net: RespondLayer,
 def _register(f0: FrameFeatures, f1: FrameFeatures, cfg: PipelineConfig,
               prior_R=None, prior_t=None, gate_m: float = 0.0,
               generator=None, samples=None) -> PairRegistration:
-    pair_idx, pair_mask, pair_dist = match_descriptors(
-        f0.descriptors, f0.mask, f1.descriptors, f1.mask,
-        pts0=f0.key_pts, pts1=f1.key_pts,
-        prior_R=prior_R, prior_t=prior_t, gate_m=gate_m,
-        ratio=cfg.match_ratio)
-    pairs0 = f0.key_pts.gather(
-        -2, pair_idx[..., None].expand(*pair_idx.shape, 3))
-    res: RansacResult = ransac_rigid(
-        pairs0, f1.key_pts, pair_mask, cfg.ransac, pair_dist=pair_dist,
-        generator=generator, samples=samples)
-    idx1 = torch.arange(pair_idx.shape[-1], device=pair_idx.device)
-    return PairRegistration(
-        R=res.R, t=res.t, success=res.success,
-        inlier_idx0=pair_idx, inlier_idx1=idx1.expand_as(pair_idx),
-        inlier_mask=res.inlier_mask, n_inliers=res.n_inliers,
-        threshold=res.threshold)
+    with span("caelo.register.pair"):
+        with span("caelo.register.match"):
+            pair_idx, pair_mask, pair_dist = match_descriptors(
+                f0.descriptors, f0.mask, f1.descriptors, f1.mask,
+                pts0=f0.key_pts, pts1=f1.key_pts,
+                prior_R=prior_R, prior_t=prior_t, gate_m=gate_m,
+                ratio=cfg.match_ratio)
+        pairs0 = f0.key_pts.gather(
+            -2, pair_idx[..., None].expand(*pair_idx.shape, 3))
+        res: RansacResult = ransac_rigid(
+            pairs0, f1.key_pts, pair_mask, cfg.ransac, pair_dist=pair_dist,
+            generator=generator, samples=samples)
+        idx1 = torch.arange(pair_idx.shape[-1], device=pair_idx.device)
+        return PairRegistration(
+            R=res.R, t=res.t, success=res.success,
+            inlier_idx0=pair_idx, inlier_idx1=idx1.expand_as(pair_idx),
+            inlier_mask=res.inlier_mask, n_inliers=res.n_inliers,
+            threshold=res.threshold)
 
 
 def register_pair(f0: FrameFeatures, f1: FrameFeatures,

@@ -37,6 +37,7 @@ from ..frontend.registration import (FrameFeatures, PairRegistration,
                                      extract_frame_features_full,
                                      register_pair, register_pair_with_prior,
                                      stack_features)
+from ..utils.telemetry import span
 from .mesh import (all_gather_rows, all_reduce_sum, axis, broadcast_module,
                    shard_rows)
 
@@ -98,19 +99,22 @@ def make_sequence_processor(cfg: PipelineConfig = PipelineConfig(),
         # The JAX version hides the pass under lax.cond; here it is a host
         # check.
         if cfg.prior_gate_m > 0.0 and not bool(regs.success.all()):
-            eye = torch.eye(3, dtype=regs.R.dtype, device=regs.R.device)[None]
-            zero = torch.zeros_like(regs.t[:1])
-            ok_prev = regs.success[:-1]
-            prior_R = torch.cat([eye, torch.where(
-                ok_prev[:, None, None], regs.R[:-1], eye)])
-            prior_t = torch.cat([zero, torch.where(
-                ok_prev[:, None], regs.t[:-1], zero)])
-            regs2 = register_pair_with_prior(f0, f1, prior_R, prior_t, cfg,
-                                             generator=generator, samples=s2)
-            use2 = ~regs.success & regs2.success
-            regs = PairRegistration(*(
-                torch.where(use2.view(-1, *[1] * (a.dim() - 1)), a, b)
-                for a, b in zip(regs2, regs)))
+            with span("caelo.register.retry"):
+                eye = torch.eye(3, dtype=regs.R.dtype,
+                                device=regs.R.device)[None]
+                zero = torch.zeros_like(regs.t[:1])
+                ok_prev = regs.success[:-1]
+                prior_R = torch.cat([eye, torch.where(
+                    ok_prev[:, None, None], regs.R[:-1], eye)])
+                prior_t = torch.cat([zero, torch.where(
+                    ok_prev[:, None], regs.t[:-1], zero)])
+                regs2 = register_pair_with_prior(
+                    f0, f1, prior_R, prior_t, cfg, generator=generator,
+                    samples=s2)
+                use2 = ~regs.success & regs2.success
+                regs = PairRegistration(*(
+                    torch.where(use2.view(-1, *[1] * (a.dim() - 1)), a, b)
+                    for a, b in zip(regs2, regs)))
         if with_refine:
             ref_feats = RefinementFeatures(*(
                 torch.stack(xs) for xs in zip(*(r for _, r in per_frame))))

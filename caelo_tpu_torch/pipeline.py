@@ -38,7 +38,7 @@ from .frontend.registration import (FrameFeatures, register_pair,
 from .geometry.kitti_pose import lidar_rel_to_cam, rel_pose_lidar
 from .parallel.mesh import world_mesh
 from .parallel.pipeline import make_sharded_icp_fn
-from .utils.telemetry import MetricsLog, StageTimer
+from .utils.telemetry import MetricsLog, StageTimer, span
 
 
 @dataclasses.dataclass
@@ -514,7 +514,8 @@ def run_full_pipeline(scans: Iterable, respond_net, encoder,
     and a run of ``min_burst`` unhealthy frames is a burst span, owned by
     stage 3b and excluded from the pairwise refinement.
 
-    ``timer`` stages are host wall clock around each stage.  The RANSAC
+    Each stage is the span ``caelo.pipeline.<stage>``; a ``timer`` also
+    times it (``StageTimer.stage``).  The RANSAC
     parity seams: ``samples`` of ``run_odometry_windowed``, ``loop_samples``
     of ``_verify_loop_candidates``, and ``anchor_samples(i, j, R_prior,
     t_prior) -> (H, S)`` for the burst anchor registrations; otherwise the
@@ -529,7 +530,8 @@ def run_full_pipeline(scans: Iterable, respond_net, encoder,
         t_tr = np.zeros(3)
     if not (hasattr(scans, "__getitem__") and hasattr(scans, "__len__")):
         scans = list(scans)
-    timer = timer or StageTimer(sync=False)
+    stage = timer.stage if timer is not None else (
+        lambda name: span(f"caelo.pipeline.{name}"))
 
     # per-frame sensor-health gate (caelo_tpu/pipeline.py:574-587)
     if hasattr(scans, "mask"):
@@ -541,7 +543,7 @@ def run_full_pipeline(scans: Iterable, respond_net, encoder,
 
     # ---- stage 1: windowed front end; features kept for loop closure and
     # the burst anchors, refinement features from the same window passes
-    with timer.stage("frontend"):
+    with stage("frontend"):
         out = run_odometry_windowed(
             scans, respond_net, encoder, R_tr, t_tr, cfg,
             window=min(window, len(scans)), seed=seed, keep_features=True,
@@ -558,7 +560,7 @@ def run_full_pipeline(scans: Iterable, respond_net, encoder,
     pair_trusted = odo.successes & healthy[:-1] & healthy[1:]
 
     # ---- stage 2: de-jump, gated on the front end's per-pair evidence
-    with timer.stage("dejump"):
+    with stage("dejump"):
         poses_dj, dejumped = refine.fix_jump_poses(
             poses_raw, cfg.refine, pair_trusted=pair_trusted)
     if metrics:
@@ -576,7 +578,7 @@ def run_full_pipeline(scans: Iterable, respond_net, encoder,
             for (_a, _b) in bspans:
                 refine_trusted[_a:_b] = True
     if enable_refinement:
-        with timer.stage("refine"):
+        with stage("refine"):
             poses_ref, stats = stage_refinement(
                 poses_dj, ref_feats, odo.inlier_pairs, R_tr, t_tr, cfg,
                 batched=batched_refine, pair_trusted=refine_trusted)
@@ -616,7 +618,7 @@ def run_full_pipeline(scans: Iterable, respond_net, encoder,
                     reg.t.double().cpu().numpy(), bool(reg.success),
                     int(reg.n_inliers))
 
-        with timer.stage("burst_rescue"):
+        with stage("burst_rescue"):
             poses_ref, burst_stats = rescue_bursts(
                 poses_ref, ref_feats, healthy, rel_lidar_fn, apply_rel_fn,
                 cfg, anchor_register_fn=anchor_register_fn,
@@ -635,7 +637,7 @@ def run_full_pipeline(scans: Iterable, respond_net, encoder,
     loop_ei = np.zeros(0, np.int32)
     loop_ej = np.zeros(0, np.int32)
     if enable_loop_closure and len(scans) > min_loop_gap:
-        with timer.stage("loop_closure"):
+        with stage("loop_closure"):
             poses_final, n_loops, loop_ei, loop_ej = stage_loop_closure(
                 poses_ref, feats, odo.rel_Rs, odo.rel_ts, R_tr, t_tr, cfg,
                 min_loop_gap=min_loop_gap, seed=seed,

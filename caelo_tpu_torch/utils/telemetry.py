@@ -1,14 +1,27 @@
-"""Stage timing and run metrics (the port's own copy of
+"""Stage timing, program spans and run metrics (the port's own copy of
 ``caelo_tpu/utils/telemetry.py``'s host parts).
 
+* ``span``: a named range of the program (every name starts with
+  ``caelo.``) on the profiler's timeline.  While a ``torch.profiler``
+  session is active it is a record-function range of operator scope
+  (``torch._C._profiler._RecordFunctionFast``), so the range shares its
+  clock with the CUDA kernels, copies and runtime calls the profiler
+  records and, unlike ``torch.profiler.record_function``'s user ranges,
+  gets no copy on the device's timeline that a reader of device time
+  would take for device work; otherwise it is one shared no-op context, a
+  flag check, that allocates nothing.  Spans nest on the calling thread:
+  a frame's ranges sit under its driver span (``caelo.odometry.frame`` or
+  ``caelo.odometry.window``).
 * ``StageTimer``: named wall-clock stages, aggregated (``summary``,
-  ``report``).  With ``sync`` and a CUDA device it synchronises the device
-  at both ends of a stage, so a stage's wall time holds the device work it
-  queued and none that an earlier stage left running.
-* ``trace``: a named region in the PyTorch profiler around a block, and
-  with a ``logdir`` a profile of the block's CPU and CUDA activity written
-  there as a Chrome trace (``torch.profiler`` in place of
-  ``jax.profiler``).
+  ``report``); each stage is also the span ``caelo.pipeline.<name>``.
+  With ``sync`` and a CUDA device it synchronises the device at both ends
+  of a stage, so a stage's wall time holds the device work it queued and
+  none that an earlier stage left running.
+* ``trace``: the one exporter.  Wrap a run in ``trace(logdir)`` and the
+  block's CPU and CUDA activity, the program's spans among it, is written
+  to ``<logdir>/<name>.trace.json`` as a Chrome trace (``torch.profiler``
+  in place of ``jax.profiler``); without a ``logdir`` the block is a
+  named region in any profiler already running.
 * ``MetricsLog``: an append-only JSONL run log, one record per event, in the
   JAX package's format.
 """
@@ -23,6 +36,17 @@ from typing import Any, Dict
 
 import torch
 
+_NO_SPAN = contextlib.nullcontext()
+_RANGE = torch._C._profiler._RecordFunctionFast
+
+
+def span(name: str):
+    """The program range ``name`` while a profiler is active, else the
+    shared no-op context: tracing is on exactly while a profiler runs."""
+    if not torch._C._autograd._profiler_enabled():
+        return _NO_SPAN
+    return _RANGE(name)
+
 
 class StageTimer:
     """Named stage timing with optional CUDA synchronisation."""
@@ -34,14 +58,16 @@ class StageTimer:
 
     @contextlib.contextmanager
     def stage(self, name: str):
-        """Time the block as stage ``name``; the CUDA synchronise at its end
-        covers every tensor the stage queued."""
+        """Time the block as stage ``name`` (and the span
+        ``caelo.pipeline.<name>``); the CUDA synchronise at its end covers
+        every tensor the stage queued."""
         sync = self.sync and torch.cuda.is_available()
         if sync:
             torch.cuda.synchronize()
         t0 = time.perf_counter()
         try:
-            yield
+            with span(f"caelo.pipeline.{name}"):
+                yield
             if sync:
                 torch.cuda.synchronize()
         finally:
@@ -64,13 +90,13 @@ class StageTimer:
 
 @contextlib.contextmanager
 def trace(logdir: str | None = None, name: str = "caelo"):
-    """Mark the block as the region ``name`` (``record_function``, shown in
-    any active profiler's trace).  With ``logdir`` the block is profiled
-    (CPU, and CUDA where a device is present) and its Chrome trace written
-    to ``<logdir>/<name>.trace.json``, also when the block raises; view it
-    in Perfetto or ``chrome://tracing``."""
+    """Mark the block as the span ``name`` (shown in any active profiler's
+    trace).  With ``logdir`` the block is profiled (CPU, and CUDA where a
+    device is present) and its Chrome trace, the program's spans in it,
+    written to ``<logdir>/<name>.trace.json``, also when the block raises;
+    view it in Perfetto or ``chrome://tracing``."""
     if not logdir:
-        with torch.profiler.record_function(name):
+        with span(name):
             yield
         return
     activities = [torch.profiler.ProfilerActivity.CPU]
@@ -80,7 +106,7 @@ def trace(logdir: str | None = None, name: str = "caelo"):
     prof = torch.profiler.profile(activities=activities)
     prof.start()
     try:
-        with torch.profiler.record_function(name):
+        with span(name):
             yield
     finally:
         prof.stop()
