@@ -42,6 +42,7 @@ _SIGNATURES = {
                              _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _I, _I, _I, _F, _F, _I, _F, _F, _P],
     "caelo_patches_from_planes": [_P, _P, _P, _P, _I, _I, _P],
+    "caelo_max_eigvec_sym4x4": [_P, _P, _L, _L, _L, _L, _I, _P],
 }
 
 

@@ -7,7 +7,9 @@ float32 whatever the TF32 settings.  Shapes are polymorphic over leading
 batch dimensions, as in the JAX module.  A transform is ``(R, t)``,
 ``(..., 3, 3)`` and ``(..., 3)``, mapping ``x -> R x + t``.  The scan
 loaders' beam-angle fix, ``correct_beam_angle_np``, is host numpy;
-``correct_beam_angle`` is its tensor twin.
+``correct_beam_angle`` is its tensor twin.  The Jacobi eigen solve under
+the Horn solve and ``rotmat_to_quat`` is one launch of the CUDA kernel
+``csrc/sym4_jacobi.cu`` (K3) for CUDA tensors.
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ import math
 
 import numpy as np
 import torch
+
+from .. import _build
 
 RADIAN2DEGREE = 180.0 / math.pi
 
@@ -157,13 +161,15 @@ def quat_to_angle_axis(q: torch.Tensor):
     return 2.0 * half, torch.where(tiny, 0.0, axis)
 
 
-def max_eigvec_sym4x4_lanes(A: torch.Tensor, sweeps: int = 8) -> torch.Tensor:
+def max_eigvec_sym4x4_lanes_plain(A: torch.Tensor,
+                                  sweeps: int = 8) -> torch.Tensor:
     """Eigenvector of the largest eigenvalue of symmetric 4x4 matrices with
     the batch on the LAST axis: ``A`` is ``(4, 4, B)``, returns ``(4, B)``.
 
     Cyclic Jacobi with a fixed sweep count and the same rotation order as
     the JAX version: every Givens rotation is elementwise math on ``(B,)``
-    vectors, with no data-dependent control flow.
+    vectors, with no data-dependent control flow.  The plain version of
+    :func:`max_eigvec_sym4x4_lanes`, which takes it for CPU tensors.
     """
     A = A.clone()
     B = A.shape[-1]
@@ -185,6 +191,39 @@ def max_eigvec_sym4x4_lanes(A: torch.Tensor, sweeps: int = 8) -> torch.Tensor:
     return v / torch.linalg.vector_norm(v, dim=0, keepdim=True)
 
 
+def max_eigvec_sym4x4_lanes(A: torch.Tensor, sweeps: int = 8) -> torch.Tensor:
+    """K3 wrapper: :func:`max_eigvec_sym4x4_lanes_plain` in one kernel
+    launch, ``A (4, 4, B) -> (4, B)``.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches
+    ``csrc/sym4_jacobi.cu`` on the current stream (one thread per matrix,
+    any strides, the plain version's result bit for bit) or raises.  The
+    kernel takes float32 and has no backward.
+    """
+    if A.dim() != 3 or A.shape[:2] != (4, 4):
+        raise ValueError(f"A {tuple(A.shape)}: want (4, 4, B)")
+    if A.device.type == "cpu":
+        return max_eigvec_sym4x4_lanes_plain(A, sweeps)
+    if A.device.type != "cuda":
+        raise ValueError(f"no Jacobi kernel for device {A.device}")
+    if A.dtype != torch.float32:
+        raise TypeError(f"the Jacobi kernel takes float32, got {A.dtype}")
+    if A.requires_grad and torch.is_grad_enabled():
+        raise ValueError("the Jacobi kernel has no backward")
+    B = A.shape[2]
+    out = torch.empty((4, B), dtype=torch.float32, device=A.device)
+    if B == 0:
+        return out
+    _build.check(_build.kernel("caelo_max_eigvec_sym4x4")(
+        A.data_ptr(), out.data_ptr(), B, *A.stride(), sweeps,
+        _build.stream(A.device)), "Jacobi kernel")
+    max_eigvec_sym4x4_lanes.launches += 1
+    return out
+
+
+max_eigvec_sym4x4_lanes.launches = 0
+
+
 def max_eigvec_sym4x4(A: torch.Tensor, sweeps: int = 8) -> torch.Tensor:
     """Eigenvector of the largest eigenvalue of a symmetric 4x4, batched over
     leading axes: ``(..., 4, 4) -> (..., 4)``.
@@ -193,8 +232,8 @@ def max_eigvec_sym4x4(A: torch.Tensor, sweeps: int = 8) -> torch.Tensor:
     ``(..., 4, 4)`` blocks; here the batch moves to the last axis and the
     rotation runs as the row/column updates of
     :func:`max_eigvec_sym4x4_lanes` -- the same rotations in the same order
-    (the products with G's zero entries are exact), with far fewer kernel
-    launches on the card.
+    (the products with G's zero entries are exact), in one kernel launch
+    on the card.
     """
     batch = A.shape[:-2]
     lanes = A.reshape(-1, 4, 4).permute(1, 2, 0)

@@ -17,6 +17,14 @@ Phases (each raises on failure; the script then exits nonzero):
    (zero-plane and clamped slots, offsets 0 and 15) and frame 0's real
    query at each scale; kernel, plain, library (``table2[slot]``) and bound
    times; the whole ``extract_patches`` per frame on both routes;
+4b. K3 (RANSAC's batched 4x4 Jacobi eigen solve in one launch) against
+   its plain version on the card, bit for bit, on Horn matrices of random
+   4-point sets at the live refit's 1 lane, the live hypotheses' 2,048 and
+   an offline window's 129,024: kernel and plain times by CUDA events, the
+   kernel's device time in a CUDA graph, its host enqueue, its bound (80
+   bytes and ~3,760 float32 operations a lane) and, at 2,048 lanes, the
+   time of ``torch.linalg.eigh`` on the same matrices; then 256 refit-like
+   Horn matrices of 500 points, one lane a call, bit for bit;
 5. the front-end odometry window at the full default ``PipelineConfig()``
    on 17 synthetic scans with random weights: run A (default config, K1 +
    K2) and run B (``use_pallas_plane_gather=False``: indexing), launch
@@ -134,12 +142,14 @@ Phases (each raises on failure; the script then exits nonzero):
    run makes (warm-up, reps, the counted window), and frames 0-15 of the
    64-frame float32 window bit-identical to the 16-frame window's.
 
-Kernel launches are counted on the main path only (runs A, 6a, 6d, 7, the
-trainers and the window of phase 8, the commands of phases 9 and 10b, the
-windows and the unsorted-pyramid query of phase 11, 12a's extractor in
-its rank, whose counts come back to this process, phase 13's drivers,
-phase 14b's two runs and phase 15's benches),
-each count set to 0 just before its run and read just after.  Prints a
+K1's, K2's and K3's launches are counted on the main path only (runs A,
+6a, 6d, 7, the trainers and the window of phase 8, the commands of phases
+9 and 10b, the windows and the unsorted-pyramid query of phase 11, 12a's
+extractor in its rank, whose counts come back to this process, phase 13's
+drivers, phase 14b's two runs and phase 15's benches), each count set to 0
+just before its run and read just after; every run that registers a pair
+must launch K3 at least four times (one RANSAC call), and 11c's query and
+12a's extractor, which register none, not at all.  Prints a
 ``{"kernels": [...]}`` JSON line, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Without a CUDA device
 it fails; it never falls back to the CPU.
@@ -422,6 +432,47 @@ def k2_bound(query):
     return bound(n_bytes, 3 * K * 4096)
 
 
+# K3's float32 operations a lane: 8 sweeps x 6 rotations, each 3 for its
+# angle, one call each of atan2f, cosf and sinf, and 72 products and sums
+# (rows and columns of A, columns of V); then 3 compares, 7 for the norm and
+# 4 quotients
+K3_OPS_PER_LANE = 48 * (3 + 3 + 72) + 3 + 7 + 4
+K3_BYTES_PER_LANE = 16 * 4 + 4 * 4      # A read, the eigenvector written
+
+
+def horn_lanes(B, g, dev, n=4, spread=10.0, tilt=None):
+    """``(4, 4, B)`` Horn matrices of random ``n``-point sets under random
+    motions (turns of about ``tilt`` radians where it is given) with 5 cm
+    of noise: RANSAC's hypotheses at ``n = 4``, its refits at hundreds."""
+    import torch
+    from caelo_tpu_torch.geometry import se3
+
+    p1 = torch.randn((B, n, 3), generator=g, device=dev) * spread
+    q = torch.randn((B, 4), generator=g, device=dev)
+    if tilt is not None:
+        q = q * tilt + torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev)
+    R = se3.quat_to_rotmat(torch.nn.functional.normalize(q, dim=1))
+    p0 = (se3.apply(R, torch.randn((B, 3), generator=g, device=dev), p1)
+          + torch.randn((B, n, 3), generator=g, device=dev) * 0.05)
+    q0, q1 = p0 - p0.mean(1, keepdim=True), p1 - p1.mean(1, keepdim=True)
+    M = torch.einsum("bni,bnj->bij", q1, q0)
+    return se3._horn_N(M).permute(1, 2, 0).contiguous()
+
+
+def check_jacobi(A, what):
+    """K3 against its plain version, bit for bit."""
+    import torch
+    from caelo_tpu_torch.geometry.se3 import (max_eigvec_sym4x4_lanes,
+                                              max_eigvec_sym4x4_lanes_plain)
+
+    out = max_eigvec_sym4x4_lanes(A)
+    ref = max_eigvec_sym4x4_lanes_plain(A)
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref):
+        raise AssertionError(f"K3 {what}: {int((out != ref).sum())} of "
+                             f"{out.numel()} entries differ from plain")
+
+
 def make_scans(cfg, thin=()):
     """Synthetic scans as bench.py makes them: the sensor translating
     through one scene, padded to cfg.max_points; scans in ``thin`` keep
@@ -536,19 +587,33 @@ def count_calls(module, name, record):
 
 
 def launch_counts():
+    from caelo_tpu_torch.geometry.se3 import max_eigvec_sym4x4_lanes
     from caelo_tpu_torch.ops.plane_gather import patches_from_planes
     from caelo_tpu_torch.ops.saliency import keypoint_score
 
     return {"saliency_map": keypoint_score.launches,
-            "gather_planes": patches_from_planes.launches}
+            "gather_planes": patches_from_planes.launches,
+            "max_eigvec_sym4x4": max_eigvec_sym4x4_lanes.launches}
 
 
 def reset_launches():
+    from caelo_tpu_torch.geometry.se3 import max_eigvec_sym4x4_lanes
     from caelo_tpu_torch.ops.plane_gather import patches_from_planes
     from caelo_tpu_torch.ops.saliency import keypoint_score
 
     keypoint_score.launches = 0
     patches_from_planes.launches = 0
+    max_eigvec_sym4x4_lanes.launches = 0
+
+
+def ran_k3(used, what):
+    """Raises unless ``used`` counts a registration's K3 launches: four a
+    batched RANSAC call, the hypotheses' solve, the refit and its two
+    tightenings."""
+    if used["max_eigvec_sym4x4"] < 4:
+        raise AssertionError(f"{what}: K3 launched "
+                             f"{used['max_eigvec_sym4x4']} times, want at "
+                             "least the four of one RANSAC call")
 
 
 def add_launches(total, more):
@@ -655,6 +720,7 @@ def whole_pipeline(cfg, respond_net, encoder, card):
     if launches["saliency_map"] < n or launches["gather_planes"] < 3 * n:
         raise AssertionError("run_full_pipeline did not run K1 and K2 per "
                              "frame")
+    ran_k3(launches, "7 run_full_pipeline")
     return launches, (scans, gt)
 
 
@@ -692,7 +758,7 @@ def training(cfg, dev, card, tmp):
                                                 respond_loss)
     from caelo_tpu_torch.utils.telemetry import MetricsLog
 
-    launches = {"saliency_map": 0, "gather_planes": 0}
+    launches = dict.fromkeys(launch_counts(), 0)
     saved, scans_seen, losses = [], [], []
     save = weights_io.save_checkpoint
     scan_patches = drivers.scan_patches
@@ -825,6 +891,7 @@ def training(cfg, dev, card, tmp):
     if used["saliency_map"] < WINDOW or used["gather_planes"] < 3 * WINDOW:
         raise AssertionError("the trained window did not run K1 and K2 per "
                              "frame")
+    ran_k3(used, "8 the trained window")
     return launches
 
 
@@ -885,7 +952,7 @@ def cli_on_kitti_tree(cfg, card, tmp):
         "(the shipped weights are not in the repository)")
     n = str(N_SCANS)
     runs, art = os.path.join(tmp, "runs"), os.path.join(tmp, "artifacts")
-    launches = {"saliency_map": 0, "gather_planes": 0}
+    launches = dict.fromkeys(launch_counts(), 0)
     stage_ms, outs = {}, {}
     try:
         for argv in (["odometry", "--data", root, "--out", runs, "--frames", n],
@@ -902,6 +969,7 @@ def cli_on_kitti_tree(cfg, card, tmp):
                     or used["gather_planes"] < 3 * N_SCANS):
                 raise AssertionError(f"cli {argv[0]} did not run K1 and K2 "
                                      "on every frame")
+            ran_k3(used, f"9 cli {argv[0]}")
         p1 = os.path.join(runs, "poses_", "00.txt")
         reset_launches()
         _, stage_ms["refine"] = run_cli(
@@ -1069,7 +1137,7 @@ def keypoint_rows(cfg, card, tmp, feats):
                weights_io.load_patch_encoder_params)
     weights_io.load_respond_layer_params = lambda path=None: rp
     weights_io.load_patch_encoder_params = lambda path=None: ep
-    launches = {"saliency_map": 0, "gather_planes": 0}
+    launches = dict.fromkeys(launch_counts(), 0)
     n = N_SCANS
     try:
         for row in ("iss", "harris", "sift", "random", "ext-3dfeatnet",
@@ -1117,9 +1185,10 @@ def keypoint_rows(cfg, card, tmp, feats):
                 f"{used}; peak device memory {peak:.1f} MiB; rel |R^T R - I| "
                 f"{orth:.2e}; {card}")
             want_k2 = 0 if row == "ext-3dfeatnet" else 3 * n
-            if used != {"saliency_map": 0, "gather_planes": want_k2}:
+            if (used["saliency_map"], used["gather_planes"]) != (0, want_k2):
                 raise AssertionError(f"row {row}: launches {used}, want K2 "
                                      f"{want_k2} and no K1")
+            ran_k3(used, f"10b row {row}")
             if row in ("iss", "harris", "sift") and not sum(n_kp):
                 raise AssertionError(f"row {row}: no keypoints")
     finally:
@@ -1262,7 +1331,7 @@ def one_device_remainder(cfg, dev, card, scans, params, nets, res_a, feats_a,
 
     net, enc = nets
     vc = cfg.voxel
-    launches = {"saliency_map": 0, "gather_planes": 0}
+    launches = dict.fromkeys(launch_counts(), 0)
     n_frames = sum(min(s + WINDOW, N_SCANS) - s
                    for s in window_starts(N_SCANS, WINDOW))
 
@@ -1286,8 +1355,9 @@ def one_device_remainder(cfg, dev, card, scans, params, nets, res_a, feats_a,
             raise AssertionError(f"11 {what}: non-finite output")
         want = {"saliency_map": n_frames,
                 "gather_planes": 3 * n_frames if want_k2 else 0}
-        if used != want:
+        if {k: used[k] for k in want} != want:
             raise AssertionError(f"11 {what}: launches {used}, want {want}")
+        ran_k3(used, f"11 {what}")
         log(f"11 {what}: {ms:.1f} ms for {N_SCANS} scans, pair successes "
             f"{int(res.successes.sum())}/{N_SCANS - 1}, peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB, launches "
@@ -1478,7 +1548,8 @@ def one_device_remainder(cfg, dev, card, scans, params, nets, res_a, feats_a,
     used = launch_counts()
     add_launches(launches, used)
     out_p = grid.extract_patches(f32.key_pts, f32.mask, pyr, vc)
-    if used != {"saliency_map": 0, "gather_planes": 3} or not all(
+    if used != {"saliency_map": 0, "gather_planes": 3,
+                "max_eigvec_sym4x4": 0} or not all(
             torch.equal(a, b) for a, b in zip(out_u, out_p)):
         raise AssertionError(f"11c unsorted pyramid: launches {used}, or "
                              "patches differ from the presorted ones")
@@ -1576,7 +1647,8 @@ def card_world(rank, world, inputs):
     feats, ms["extractor_first"] = event_ms(lambda: ex(*nets, pts, mask))
     out["launches"] = launch_counts()
     B = pts.shape[0]
-    if out["launches"] != {"saliency_map": B, "gather_planes": 3 * B}:
+    if out["launches"] != {"saliency_map": B, "gather_planes": 3 * B,
+                           "max_eigvec_sym4x4": 0}:
         raise AssertionError(f"12a extractor launches {out['launches']} for "
                              f"{B} frames")
     _, ms["extractor"] = event_ms(lambda: ex(*nets, pts, mask, gather=True))
@@ -1758,7 +1830,7 @@ def example_drivers(cfg, card, tmp, circuit):
     from caelo_tpu_torch.examples import train_from_scratch_study as study
     from caelo_tpu_torch.models import weights_io
 
-    launches = {"saliency_map": 0, "gather_planes": 0}
+    launches = dict.fromkeys(launch_counts(), 0)
     # ---- (a) the study on the circuit's cache
     scans, gt = circuit
     cache = os.path.join(tmp, "circuit.npz")
@@ -1790,6 +1862,7 @@ def example_drivers(cfg, card, tmp, circuit):
     if used["saliency_map"] < 8 or used["gather_planes"] < 24:
         raise AssertionError("13a the study's evaluation did not run K1 "
                              "and K2 per frame")
+    ran_k3(used, "13a the study's evaluation")
 
     # ---- (b) the hard benchmark with the trained weights
     runs = os.path.join(tmp, "hb_runs")
@@ -1827,6 +1900,7 @@ def example_drivers(cfg, card, tmp, circuit):
             or used["gather_planes"] < 3 * HB_FRAMES):
         raise AssertionError("13b the pipeline did not run K1 and K2 per "
                              "frame")
+    ran_k3(used, "13b hard_benchmark")
 
     # ---- (c) the demos and KITTI golden, the .h5 loaders answering (a)'s
     # trained weights (relu / linear encoder), and collect_validation
@@ -1882,6 +1956,7 @@ def example_drivers(cfg, card, tmp, circuit):
     if (used["saliency_map"] < 2 + 41 + N_SCANS
             or used["gather_planes"] < 3 * (2 + 41 + N_SCANS)):
         raise AssertionError("13c the demos did not run K1 and K2 per frame")
+    ran_k3(used, "13c the demos")
     rows = collect_validation.collect(runs)
     row, = rows["clean_w64"]
     want = [k for k in collect_validation.KEYS if k in hb] + ["stage_s"]
@@ -1931,7 +2006,7 @@ def sequence_scale(cfg, card, tmp, circuit):
     json_out = os.path.join(tmp, "seq_scale.json")
     argv = ["--frames", str(n), "--scan-cache", base, "--weights",
             os.path.join(tmp, "scratch"), "--json-out", json_out]
-    launches = {"saliency_map": 0, "gather_planes": 0}
+    launches = dict.fromkeys(launch_counts(), 0)
     pipeline = seq_scale.run_full_pipeline
     results = {}
     for threaded in (False, True):
@@ -1978,6 +2053,7 @@ def sequence_scale(cfg, card, tmp, circuit):
         if (used["saliency_map"] < n or used["gather_planes"] < 3 * n):
             raise AssertionError("14b the pipeline did not run K1 and K2 per "
                                  "frame")
+        ran_k3(used, "14b seq_scale.run")
     log(f"14b gates (not asserted): {seq_scale.gates(out)}; success "
         f"{out['success_rate']}, "
         f"{out['frames_per_s_e2e']} frames/s, ATE {out['ate_m']}, loop "
@@ -2019,7 +2095,7 @@ def bench_windows(cfg, card, tmp):
     from caelo_tpu_torch import bench, cli
 
     make = bench.make_sequence_processor
-    launches = {"saliency_map": 0, "gather_planes": 0}
+    launches = dict.fromkeys(launch_counts(), 0)
     first = {}               # (frames, dtype) -> the warm-up's features
     for n, dtype in BENCH_RUNS:
         windows = []                 # each window's launches
@@ -2085,10 +2161,13 @@ def bench_windows(cfg, card, tmp):
             raise AssertionError(f"15 {what}: FLOPs {counted} against "
                                  f"{layers} / {whole} by hand")
         want = {"saliency_map": n, "gather_planes": 3 * n}
-        if len(windows) != BENCH_REPS + 2 or any(w != want for w in windows):
+        if len(windows) != BENCH_REPS + 2 or any(
+                {k: w[k] for k in want} != want for w in windows):
             raise AssertionError(f"15 {what}: launches per window "
                                  f"{windows}, want {want} in each of "
                                  f"{BENCH_REPS + 2}")
+        for w in windows:
+            ran_k3(w, f"15 {what}, a window")
     big, small = (64, "float32"), (16, "float32")
     for name, a, b in zip(first[small]._fields, first[big], first[small]):
         if not torch.equal(a[:small[0]], b):
@@ -2129,6 +2208,8 @@ def main():
     from caelo_tpu_torch.frontend.odometry import run_odometry_windowed
     from caelo_tpu_torch.frontend.registration import (
         extract_frame_features, extract_frame_features_full)
+    from caelo_tpu_torch.geometry.se3 import (max_eigvec_sym4x4_lanes,
+                                              max_eigvec_sym4x4_lanes_plain)
     from caelo_tpu_torch.models.weights_io import (build_models,
                                                    random_flax_params)
     from caelo_tpu_torch.ops.nms import select_keypoints_planes
@@ -2309,6 +2390,46 @@ def main():
     log(f"extract_patches per frame: kernel route {ext_ms:.4f} ms, indexing "
         f"route {ext_plain_ms:.4f} ms; {smi}")
 
+    # ---- 4b. K3 against its plain version, bit for bit
+    k3_ms = k3_plain_ms = k3_bound_ms = k3_lib_ms = 0.0
+    k3_bound_by = None
+    for B, what in ((2048, "live hypotheses"), (1, "live refit"),
+                    (63 * 2048, "offline window's hypotheses")):
+        A = horn_lanes(B, g, dev)
+        check_jacobi(A, f"{B} lanes")
+        k3_kernel = lambda: max_eigvec_sym4x4_lanes(A)
+        km, pm = ab_ms(lambda: max_eigvec_sym4x4_lanes_plain(A), k3_kernel,
+                       10)
+        bms, bby = bound(B * K3_BYTES_PER_LANE, B * K3_OPS_PER_LANE)
+        bytes_ms = bound(B * K3_BYTES_PER_LANE, 0)[0]
+        log(f"K3 {B} lanes ({what}): bit-exact; kernel {km:.4f} ms, plain "
+            f"{pm:.4f} ms, bound {bms:.5f} ms ({bby}; bytes alone "
+            f"{bytes_ms:.5f} ms); device time (CUDA graph of 20 calls) "
+            f"{graph_ms(k3_kernel):.4f} ms; host enqueue of one kernel "
+            f"call {host_us(k3_kernel):.1f} us; {smi}")
+        if B == 2048:    # the kernel row: the live hypotheses' solve
+            k3_ms, k3_plain_ms, k3_bound_ms = km, pm, bms
+            k3_bound_by = bby
+            # the library's batched eigen solve of the same matrices: all
+            # four eigenpairs, the last column the largest's eigenvector
+            eigh = lambda: torch.linalg.eigh(A.permute(2, 0, 1))[1][..., -1]
+            k3_lib_ms = cuda_ms(eigh, 10)
+            cos = (eigh() * k3_kernel().T).sum(1).abs()
+            log(f"K3 {B} lanes: torch.linalg.eigh {k3_lib_ms:.4f} ms (CUDA "
+                f"events), its eigenvector against K3's |cos| >= "
+                f"{float(cos.min()):.6f}; {smi}")
+        del A
+    # the live refit and its tightenings solve one lane a call, where torch
+    # sums the norm's squares as a tree: refit-like lanes of 500 points, one
+    # at a time
+    A = horn_lanes(256, g, dev, n=500, spread=20.0, tilt=0.02)
+    for b in range(A.shape[2]):
+        check_jacobi(A[:, :, b:b + 1], f"refit-like lane {b}")
+    log(f"K3 {A.shape[2]} refit-like lanes of 500 points, one a call: "
+        "bit-exact")
+    del A
+    k3_err = 0.0                                 # bit-exact, checked above
+
     # ---- 5. the slice
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -2319,6 +2440,7 @@ def main():
     torch.cuda.synchronize()
     t_a = time.perf_counter() - t0
     launches = launch_counts()
+    ran_k3(launches, "run A")
     reset_launches()
     t0 = time.perf_counter()
     res_b, feats_b = run_odometry_windowed(
@@ -2409,6 +2531,7 @@ def main():
     if (launches_r["saliency_map"] < N_SCANS
             or launches_r["gather_planes"] <= 0):
         raise AssertionError("refinement window did not run both kernels")
+    ran_k3(launches_r, "6a window with refinement features")
     if not np.array_equal(res_r.rel_Rs, res_b.rel_Rs):
         raise AssertionError("refinement window changed the odometry")
     E, P = cfg.icp.max_points, cfg.icp.max_planar
@@ -2505,6 +2628,7 @@ def main():
             or launches_f["gather_planes"] < 3 * N_SCANS):
         raise AssertionError("run_full_pipeline did not run K1 and K2 per "
                              "frame")
+    ran_k3(launches_f, "6d run_full_pipeline")
     moved = np.abs(full.poses_refined - full.poses_dejumped).max()
     log(f"refinement moved the poses by up to {moved:.4f}; peak device "
         f"memory of phase 6: "
@@ -2552,6 +2676,11 @@ def main():
          "launches": launches["gather_planes"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
          "bound_by": k2_bound_by, "library_ms": k2_lib_ms},
+        {"name": "max_eigvec_sym4x4", "route": "cuda",
+         "source": "caelo_tpu_torch/csrc/sym4_jacobi.cu", "replaces": None,
+         "launches": launches["max_eigvec_sym4x4"], "max_abs_err": k3_err,
+         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound_ms,
+         "bound_by": k3_bound_by, "library_ms": k3_lib_ms},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,6 +1,9 @@
-"""The port on a CUDA device: both CUDA kernels against their plain versions
-at the main path's shapes and at the edges (borders, odd widths, pixels
-with no occupied neighbour, all-masked keypoints, clamped slots), one
+"""The port on a CUDA device: the three CUDA kernels against their plain
+versions at the main path's shapes and at the edges (borders, odd widths,
+pixels with no occupied neighbour, all-masked keypoints, clamped slots;
+K3's Jacobi bit for bit on random, diagonal, zero, repeated-eigenvalue and
+Horn matrices at 1 to 129,024 lanes, the norm in torch's order, and a
+pair registered through it against the plain route), one
 frame's features and registration, the batched hybrid ICP, the burst map
 ICP, a full-width train step of each auto-encoder and the patch trainer's
 data path, the keypoint baselines and ``features_from_keypoints`` (K2 at
@@ -28,10 +31,12 @@ from caelo_tpu_torch.config import (IcpConfig, KeypointConfig, SensorConfig,
                                     tiny_test_config)
 from caelo_tpu_torch.data.synthetic import (make_scene, range_filter,
                                             sample_scene_points)
+from caelo_tpu_torch.frontend import ransac
 from caelo_tpu_torch.frontend.ransac import draw_samples
 from caelo_tpu_torch.frontend.registration import (extract_frame_features,
                                                    register_pair,
                                                    stack_features)
+from caelo_tpu_torch.geometry import se3
 from caelo_tpu_torch.models.weights_io import build_models, random_flax_params
 from caelo_tpu_torch.ops.masking import pad_points
 from caelo_tpu_torch.ops.plane_gather import (patches_from_planes,
@@ -245,6 +250,197 @@ def test_frame_and_pair_on_card_match_cpu(cuda):
     assert int(reg_gpu.n_inliers) == int(reg_cpu.n_inliers)
     torch.testing.assert_close(reg_gpu.R.cpu(), reg_cpu.R, atol=1e-4, rtol=0)
     torch.testing.assert_close(reg_gpu.t.cpu(), reg_cpu.t, atol=1e-4, rtol=0)
+
+
+def _quat_left(q):
+    """``(B, 4)`` unit quaternions -> their orthogonal ``(B, 4, 4)``
+    left-product matrices."""
+    w, x, y, z = q.unbind(-1)
+    rows = [[w, -x, -y, -z], [x, w, -z, y], [y, z, w, -x], [z, -y, x, w]]
+    return torch.stack([torch.stack(r, -1) for r in rows], -2)
+
+
+def _sym4_lanes(kind, B, dev, g):
+    """``(4, 4, B)`` float32 symmetric matrices of one kind."""
+    rand = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    if kind == "random":
+        X = rand(B, 4, 4)
+        A = X + X.transpose(1, 2)
+    elif kind == "diagonal":
+        # every fourth lane's diagonal ties at its largest value
+        d = rand(B, 4)
+        d[::4, 2] = d[::4, 0] = d[::4].max(1).values + 1.0
+        A = torch.diag_embed(d)
+    elif kind == "zero":
+        A = torch.zeros((B, 4, 4), device=dev)
+    elif kind == "repeated":
+        # Q diag(3, 3, 1, -2) Q^T: the largest eigenvalue twice
+        Q = _quat_left(torch.nn.functional.normalize(rand(B, 4), dim=1))
+        D = torch.tensor([3.0, 3.0, 1.0, -2.0], device=dev)
+        A = (Q * D) @ Q.transpose(1, 2)
+        A = (A + A.transpose(1, 2)) * 0.5
+    else:
+        return _horn_lanes(g, dev, B)
+    return A.permute(1, 2, 0).contiguous()
+
+
+def _horn_lanes(g, dev, B, n=4, spread=10.0, tilt=None):
+    """``(4, 4, B)`` Horn matrices of ``B`` sets of ``n`` points under
+    random motions (turns of about ``tilt`` radians where it is given) with
+    5 cm of noise: RANSAC's hypotheses at ``n = 4``, its refits at
+    hundreds."""
+    rand = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    q = rand(B, 4) if tilt is None else (
+        rand(B, 4) * tilt + torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev))
+    R = se3.quat_to_rotmat(torch.nn.functional.normalize(q, dim=1))
+    p1 = rand(B, n, 3) * spread
+    p0 = se3.apply(R, rand(B, 3), p1) + rand(B, n, 3) * 0.05
+    q0, q1 = p0 - p0.mean(1, keepdim=True), p1 - p1.mean(1, keepdim=True)
+    M = torch.einsum("bni,bnj->bij", q1, q0)
+    return se3._horn_N(M).permute(1, 2, 0).contiguous()
+
+
+@pytest.mark.parametrize("kind", ["random", "diagonal", "zero", "repeated",
+                                  "horn"])
+@pytest.mark.parametrize("B", [1, 7, 2048, 129024])
+def test_jacobi_kernel_matches_plain(cuda, kind, B):
+    """K3 against its plain version on the card, bit for bit, at the live
+    refit's 1 lane, the live hypotheses' 2,048 and an offline window's
+    63 x 2,048, one launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(B)
+    A = _sym4_lanes(kind, B, cuda, g)
+    before = se3.max_eigvec_sym4x4_lanes.launches
+    out = se3.max_eigvec_sym4x4_lanes(A)
+    torch.cuda.synchronize()
+    assert se3.max_eigvec_sym4x4_lanes.launches == before + 1
+    ref = se3.max_eigvec_sym4x4_lanes_plain(A)
+    assert out.shape == ref.shape == (4, B)
+    assert torch.equal(out, ref)
+
+
+# Horn matrices of live refits on which torch.linalg.vector_norm's
+# single-lane order (a tree) and its batched order (serial) part by an ulp
+_REFIT_LANES = [
+    [[721632.625, -26.138671875, -175.1884765625, 21487.875],
+     [-26.138671875, 203696.8125, 373491.71875, 7287.587890625],
+     [-175.1884765625, 373491.71875, -204191.8125, 7862.201171875],
+     [21487.875, 7287.587890625, 7862.201171875, -721137.6875]],
+    [[764020.5625, -177.880859375, -68.95733642578125, 22839.8125],
+     [-177.880859375, 456477.3125, 193569.671875, 1555.1494140625],
+     [-68.95733642578125, 193569.671875, -457050.75, 3982.66064453125],
+     [22839.8125, 1555.1494140625, 3982.66064453125, -763447.1875]],
+    [[424154.46875, -32.32879638671875, -8.51708984375, 12790.03125],
+     [-32.32879638671875, 144505.15625, 142941.90625, -229.4757537841797],
+     [-8.51708984375, 142941.90625, -144748.03125, 1203.474853515625],
+     [12790.03125, -229.4757537841797, 1203.474853515625, -423911.5625]],
+]
+
+
+def test_jacobi_kernel_sums_the_norm_as_torch(cuda):
+    """The eigenvector's norm summed in torch's order on the card: a tree
+    for a single lane, serially for a batch.  Live refit matrices whose
+    two orders differ, and 210 refit-like Horn matrices (500 points each,
+    entries ~1e5) alone and in batches of 2 to 7, bit for bit the plain
+    version."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    known = torch.tensor(_REFIT_LANES, device=cuda).permute(1, 2, 0)
+    lanes = _horn_lanes(g, cuda, 210, n=500, spread=20.0, tilt=0.02)
+    calls = [known[:, :, i:i + 1] for i in range(3)] + [known]
+    for n in (1, 2, 3, 5, 7):
+        calls += [lanes[:, :, i:i + n] for i in range(0, 210, n)]
+    for A in calls:
+        assert torch.equal(se3.max_eigvec_sym4x4_lanes(A),
+                           se3.max_eigvec_sym4x4_lanes_plain(A))
+
+
+def test_jacobi_kernel_layouts_sweeps_and_callers(cuda, monkeypatch):
+    """K3 on the strided lanes that ``max_eigvec_sym4x4`` hands it, at 0
+    and 3 sweeps, and under ``solve_rigid_horn`` and ``rotmat_to_quat``,
+    against the plain route on the card, bit for bit; a non-float32 or a
+    differentiated input raises."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    A = _sym4_lanes("random", 300, cuda, g)
+    strided = A.permute(2, 0, 1).contiguous().permute(1, 2, 0)
+    assert not strided.is_contiguous()
+    for sweeps in (0, 3, 8):
+        assert torch.equal(se3.max_eigvec_sym4x4_lanes(strided, sweeps),
+                           se3.max_eigvec_sym4x4_lanes_plain(strided, sweeps))
+    p1 = torch.randn((5, 50, 3), generator=g, device=cuda) * 5
+    R = se3.quat_to_rotmat(torch.nn.functional.normalize(
+        torch.randn((5, 4), generator=g, device=cuda), dim=1))
+    p0 = se3.apply(R, torch.randn((5, 3), generator=g, device=cuda), p1)
+    w = (torch.rand((5, 50), generator=g, device=cuda) < 0.7).float()
+    calls = [lambda: (se3.max_eigvec_sym4x4(A.permute(2, 0, 1).reshape(
+                 3, 100, 4, 4)),),
+             lambda: se3.solve_rigid_horn(p0, p1, w),
+             lambda: se3.solve_rigid_horn(p0[0], p1[0]),
+             lambda: (se3.rotmat_to_quat(R),)]
+    before = se3.max_eigvec_sym4x4_lanes.launches
+    got = [fn() for fn in calls]
+    assert se3.max_eigvec_sym4x4_lanes.launches == before + len(calls)
+    monkeypatch.setattr(se3, "max_eigvec_sym4x4_lanes",
+                        se3.max_eigvec_sym4x4_lanes_plain)
+    for out, fn in zip(got, calls):
+        for a, b in zip(out, fn()):
+            assert torch.equal(a, b)
+    monkeypatch.undo()
+    with pytest.raises(TypeError):
+        se3.max_eigvec_sym4x4_lanes(A.double())
+    with pytest.raises(TypeError):
+        se3.max_eigvec_sym4x4_lanes(A.half())
+    with pytest.raises(ValueError):
+        se3.max_eigvec_sym4x4_lanes(A.clone().requires_grad_())
+
+
+def test_pair_through_jacobi_kernel_matches_plain_route(cuda, monkeypatch):
+    """One pair at the tiny config registered on the card through K3 and
+    through the plain Jacobi, from the same draws: the same success,
+    inliers, inlier mask and threshold, R and t within 1e-6; four launches
+    (the hypotheses, the refit, its two tightenings), and each of the four
+    Horn matrices of the pair solved bit for bit as the plain version."""
+    cfg = tiny_test_config()
+    params = random_flax_params(0)
+    net, enc = build_models(*params, cuda, cfg)
+    feats = []
+    for shift in (0.0, 0.8):
+        pts, mask = (torch.from_numpy(a).to(cuda) for a in _scan(cfg, shift))
+        feats.append(extract_frame_features(net, enc, pts, mask, cfg))
+    f0, f1 = feats
+    samples = draw_samples(f1.mask[None].cpu(), cfg.ransac,
+                           torch.Generator().manual_seed(0))[0].to(cuda)
+    # the Jacobi's inputs, recorded where RANSAC and the Horn solve build
+    # them: (4, 4, H) lanes, then (1, 4, 4) matrices
+    seen = []
+
+    def recorder(build):
+        def record(M):
+            seen.append(build(M))
+            return seen[-1]
+        return record
+
+    for module, name in ((ransac, "_horn_N_lanes"), (se3, "_horn_N")):
+        monkeypatch.setattr(module, name, recorder(getattr(module, name)))
+    kernel = se3.max_eigvec_sym4x4_lanes
+    before = kernel.launches
+    reg_k = register_pair(f0, f1, cfg, samples=samples)
+    torch.cuda.synchronize()
+    assert cfg.ransac.refit_iters == 2 and kernel.launches == before + 4
+    assert len(seen) == 4 and seen[0].shape == (4, 4, cfg.ransac.n_hypotheses)
+    monkeypatch.undo()
+    monkeypatch.setattr(se3, "max_eigvec_sym4x4_lanes",
+                        se3.max_eigvec_sym4x4_lanes_plain)
+    reg_p = register_pair(f0, f1, cfg, samples=samples)
+    assert kernel.launches == before + 4
+    assert bool(reg_k.success) == bool(reg_p.success)
+    assert int(reg_k.n_inliers) == int(reg_p.n_inliers)
+    assert torch.equal(reg_k.inlier_mask, reg_p.inlier_mask)
+    assert torch.equal(reg_k.threshold, reg_p.threshold)
+    torch.testing.assert_close(reg_k.R, reg_p.R, atol=1e-6, rtol=0)
+    torch.testing.assert_close(reg_k.t, reg_p.t, atol=1e-6, rtol=0)
+    monkeypatch.undo()
+    for A in [seen[0]] + [N.reshape(-1, 4, 4).permute(1, 2, 0)
+                          for N in seen[1:]]:
+        assert torch.equal(kernel(A), se3.max_eigvec_sym4x4_lanes_plain(A))
 
 
 def _rot_z(deg):

@@ -1,9 +1,16 @@
-"""The port's two kernels (K1 keypoint saliency and gates, K2 plane gather
-to finished patches): their plain PyTorch versions against the Pallas
-kernels in interpret mode, the JAX XLA code around them and a numpy
-oracle, and the wrappers' CPU dispatch.  The CUDA kernels themselves are
-tested on the card by tests/test_torch_gpu.py."""
+"""The port's three kernels (K1 keypoint saliency and gates, K2 plane
+gather to finished patches, K3 the batched 4x4 Jacobi eigen solve): the
+plain PyTorch versions of K1 and K2 against the Pallas kernels in
+interpret mode, the JAX XLA code around them and a numpy oracle (K3's
+plain version is held to JAX by tests/test_torch_geometry.py), the
+wrappers' CPU dispatch, and the ctypes signatures against the C entry
+points.  The CUDA kernels themselves are tested on the card by
+tests/test_torch_gpu.py."""
+import ctypes
 import dataclasses
+import glob
+import os
+import re
 
 import numpy as np
 import pytest
@@ -16,6 +23,8 @@ from caelo_tpu.ops.nms import select_keypoints as jselect
 from caelo_tpu.ops.pallas_nms import saliency_map_pallas
 from caelo_tpu.ops.pallas_patches import gather_planes_pallas
 from caelo_tpu.projection.spherical import project_to_spherical_ring
+from caelo_tpu_torch import _build
+from caelo_tpu_torch.geometry import se3
 from caelo_tpu_torch.ops.nms import top_k
 from caelo_tpu_torch.ops.plane_gather import (gather_planes_plain,
                                               patches_from_planes,
@@ -272,3 +281,63 @@ def test_keypoint_score_extras_and_batch(rng):
             assert torch.equal(x[b], y)
     with pytest.raises(ValueError):
         keypoint_score(planes, img[None], cnt, cfg.sensor, kp)
+
+
+def test_jacobi_wrapper_takes_plain_on_cpu(rng):
+    """max_eigvec_sym4x4_lanes (K3's wrapper) takes its plain version on
+    the CPU, float64 and strided lanes too, and launches nothing, nor do
+    the Horn solve and rotmat_to_quat above it; it checks its shape and
+    device."""
+    A = rng.normal(size=(40, 4, 4)).astype(np.float32)
+    A = torch.from_numpy(A + A.transpose(0, 2, 1))
+    before = se3.max_eigvec_sym4x4_lanes.launches
+    for lanes in (A.permute(1, 2, 0).contiguous(), A.permute(1, 2, 0),
+                  A.permute(1, 2, 0).double(), A[:1].permute(1, 2, 0)):
+        out = se3.max_eigvec_sym4x4_lanes(lanes)
+        assert out.dtype == lanes.dtype and out.shape == (4, lanes.shape[2])
+        assert torch.equal(out, se3.max_eigvec_sym4x4_lanes_plain(lanes))
+    p1 = torch.from_numpy(rng.normal(size=(3, 20, 3)).astype(np.float32))
+    se3.solve_rigid_horn(p1 + 1.0, p1)
+    se3.rotmat_to_quat(torch.eye(3).repeat(2, 1, 1))
+    assert se3.max_eigvec_sym4x4_lanes.launches == before
+    with pytest.raises(ValueError):
+        se3.max_eigvec_sym4x4_lanes(A.permute(1, 2, 0)[:3])
+    with pytest.raises(ValueError):
+        se3.max_eigvec_sym4x4_lanes(torch.zeros((4, 4, 2), device="meta"))
+
+
+_C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+            "int": ctypes.c_int, "long long": ctypes.c_longlong,
+            "float": ctypes.c_float}
+
+
+def _c_entry_points():
+    """``{name: [ctypes type of each parameter]}`` of every ``extern "C"
+    int`` function in ``csrc/*.cu``."""
+    found = {}
+    for path in glob.glob(os.path.join(_build.CSRC, "*.cu")):
+        with open(path) as f:
+            src = f.read()
+        for name, params in re.findall(
+                r'extern "C" int (\w+)\(([^)]*)\)', src):
+            types = [re.sub(r"\s*\w+$", "", p.strip())
+                     for p in params.split(",")]
+            found[name] = [_C_TYPES[t] for t in types]
+    return found
+
+
+@pytest.mark.parametrize("name", sorted(_build._SIGNATURES))
+def test_ctypes_signature_matches_the_c_entry_point(name):
+    """Each entry point the library binds is declared in ``csrc/`` with
+    the parameters ``_build._SIGNATURES`` gives ctypes: a pointer or a
+    64-bit count passed as a 32-bit int would be cut on the card."""
+    assert _c_entry_points()[name] == _build._SIGNATURES[name]
+
+
+def test_every_c_entry_point_is_bound():
+    """The K3 source is there, and every entry point in ``csrc/`` has its
+    ctypes signature, so none is called with ctypes' default int
+    arguments."""
+    assert os.path.exists(os.path.join(_build.CSRC, "sym4_jacobi.cu"))
+    assert set(_c_entry_points()) == set(_build._SIGNATURES)
+    assert "caelo_max_eigvec_sym4x4" in _build._SIGNATURES
