@@ -1,8 +1,11 @@
 """The port's ``rescue_bursts`` against the JAX package on the CPU, on the
 corrupted trajectory of ``tests/test_burst.py``'s splice test, at the map
 budget the pipeline uses (``min(2048, IcpConfig.max_points)`` points a
-frame).  Apart from ``tests/test_torch_burst.py`` so that the two files'
-JAX reference runs go to two workers."""
+frame).  A file of its own so that its JAX reference run, the suite's
+second longest test, takes a worker of its own and does not queue behind
+``tests/test_torch_burst.py``'s on one.  When a worker starts it is decided
+by the file's line in ``tests/file_weights.json`` (heaviest first), not by
+its single test."""
 import numpy as np
 import torch
 import jax.numpy as jnp
