@@ -24,7 +24,9 @@ from typing import NamedTuple
 
 import torch
 
+from .. import _build
 from ..ops.nms import top_k
+from ..utils.telemetry import span
 
 _INF = float("inf")
 _EIGH_BATCH = 16384
@@ -35,8 +37,8 @@ class KeypointResult(NamedTuple):
     key_mask: torch.Tensor    # (n_keypoints,) bool
 
 
-def _knn_neighbors(pts: torch.Tensor, mask: torch.Tensor, k: int,
-                   chunk: int = 512) -> torch.Tensor:
+def _knn_neighbors_plain(pts: torch.Tensor, mask: torch.Tensor, k: int,
+                         chunk: int = 512) -> torch.Tensor:
     """``(N, k)`` int64 indices of the k nearest points of every point.
 
     Scores are JAX's ``2 q.p - |p|^2 - |q|^2`` with masked points at
@@ -44,7 +46,8 @@ def _knn_neighbors(pts: torch.Tensor, mask: torch.Tensor, k: int,
     ``lax.top_k``'s order (score descending, the lower index first among
     equal scores).  Which of the points tied at the k-th score make the cut
     is left to ``torch.topk``.  Queries run ``chunk`` rows at a time: a
-    chunk holds a ``(chunk, N)`` float32 score matrix.
+    chunk holds a ``(chunk, N)`` float32 score matrix.  The plain version
+    of :func:`_knn_neighbors`, which takes it for CPU tensors.
     """
     p2m = torch.where(mask, (pts * pts).sum(-1), 1e12)
     out = []
@@ -58,6 +61,116 @@ def _knn_neighbors(pts: torch.Tensor, mask: torch.Tensor, k: int,
                                            stable=True).indices
         out.append(idx.gather(-1, order))
     return torch.cat(out)
+
+
+# K4's block (csrc/knn_select.cu): queries a block, points a tile
+_KNN_QUERIES, _KNN_TILE = 128, 256
+_KNN_KMAX = 128
+# the Morton curve's cells: 2^10 a side over the scan's bounding box
+_MORTON_BITS = 10
+
+
+def _morton_spread(c: torch.Tensor) -> torch.Tensor:
+    """Bit b of each 10-bit ``c`` moved to bit ``3 b``."""
+    for shift, keep in ((16, 0x030000FF), (8, 0x0300F00F), (4, 0x030C30C3),
+                        (2, 0x09249249)):
+        c = (c | (c << shift)) & keep
+    return c
+
+
+def _knn_visit_order(pts: torch.Tensor, mask: torch.Tensor):
+    """K4's visiting order: ``(perm (N,) int64, start (ceil(N / 128),)
+    int32)``.  ``perm`` sorts the valid points along a Morton curve over
+    the scan's bounding box, the masked ones last; ``start`` is the tile of
+    ``_KNN_TILE`` sorted points where each block's first query would lie,
+    masked or not, which the block visits first.  Speed only: the kernel's
+    result does not depend on the order."""
+    lo, hi = torch.aminmax(pts, dim=0)
+    top = (1 << _MORTON_BITS) - 1
+    cell = ((pts - lo) * (top / (hi - lo).clamp_min(1e-30))).clamp_(0, top)
+    c = _morton_spread(cell.long())
+    code = c[:, 0] | (c[:, 1] << 1) | (c[:, 2] << 2)
+    keys, perm = torch.sort(torch.where(mask, code, 1 << 3 * _MORTON_BITS))
+    start = torch.searchsorted(keys, code[perm[::_KNN_QUERIES]])
+    return perm, (start // _KNN_TILE).int()
+
+
+def _knn_tile_boxes(rows: torch.Tensor) -> torch.Tensor:
+    """``(T, 8)`` float32, K4's view of each tile of ``_KNN_TILE`` sorted
+    points, from their ``rows (N, 5)`` ``(x, y, z, -p2m, p2 - p2m)``: the
+    least x, y, z, the tile's lift, the largest x, y, z and a pad.  A point
+    ``p`` of the tile scores at most ``-D^2 + lift + 2^-17 q2`` against a
+    query ``q`` at distance ``D`` from the box: ``lift`` is the tile's
+    largest ``p2 - p2m`` (0 where all are valid, about -1e12 where all are
+    masked) plus ``2^-18 (2 P^2 + M)``, with ``P`` bounding ``|p|`` and
+    ``M`` the largest ``p2m``; with ``2^-17 q2`` that is ten times the
+    rounding of the score's float32 operations and of ``p2`` and ``q2``.
+    NaN in a tile makes its lift NaN, which K4 never skips."""
+    pad = -rows.shape[0] % _KNN_TILE
+    if pad:
+        rows = torch.cat([rows, rows[-1:].expand(pad, -1)])
+    lo, hi = torch.aminmax(rows.view(-1, _KNN_TILE, rows.shape[1]), dim=1)
+    xyz_lo, xyz_hi = lo[:, :3], hi[:, :3]
+    p2 = torch.maximum(xyz_lo * xyz_lo, xyz_hi * xyz_hi).sum(1)
+    lift = hi[:, 4] + 2.0 ** -18 * (2.0 * p2 - lo[:, 3])
+    return torch.cat([xyz_lo, lift[:, None], xyz_hi, torch.zeros_like(
+        lift[:, None])], 1).contiguous()
+
+
+def _knn_neighbors(pts: torch.Tensor, mask: torch.Tensor, k: int,
+                   chunk: int = 512) -> torch.Tensor:
+    """K4 wrapper: :func:`_knn_neighbors_plain`'s ``(N, k)`` rows in one
+    kernel launch that writes no score and skips the tiles of points that
+    no query of a block can use.
+
+    A CPU tensor takes the plain version (``chunk`` queries at a time); a
+    CUDA tensor launches ``csrc/knn_select.cu`` on the current stream (the
+    plain version's float32 scores, the k best by score descending, then
+    index ascending, bit for bit) or raises.  ``pts`` is float32 ``(N, 3)``
+    (contiguous on the card), ``1 <= k <= 128``."""
+    if pts.dim() != 2 or pts.shape[1] != 3:
+        raise ValueError(f"pts {tuple(pts.shape)}: want (N, 3)")
+    if pts.dtype != torch.float32:
+        raise TypeError(f"the KNN takes float32, got {pts.dtype}")
+    if not 1 <= k <= _KNN_KMAX:
+        raise ValueError(f"k {k}: the KNN kernel takes 1 to {_KNN_KMAX}")
+    with span("caelo.frontend.knn"):
+        if pts.device.type == "cpu":
+            return _knn_neighbors_plain(pts, mask, k, chunk)
+        if pts.device.type != "cuda":
+            raise ValueError(f"no KNN kernel for device {pts.device}")
+        n = pts.shape[0]
+        if not pts.is_contiguous():
+            raise ValueError("the KNN kernel takes contiguous points")
+        if (mask.shape != (n,) or mask.dtype != torch.bool
+                or mask.device != pts.device):
+            raise ValueError(f"mask {tuple(mask.shape)} {mask.dtype} on "
+                             f"{mask.device}: want ({n},) bool on "
+                             f"{pts.device}")
+        if k > n:
+            raise ValueError(f"k {k} > {n} points")
+        # the plain version's own operations, so its bits
+        p2 = (pts * pts).sum(-1)
+        p2m = torch.where(mask, p2, 1e12)
+        perm, start = _knn_visit_order(pts, mask)
+        rows = torch.cat([pts, p2m.neg()[:, None], (p2 - p2m)[:, None]],
+                         1)[perm]
+        pp = rows[:, :4].contiguous()
+        boxes = _knn_tile_boxes(rows)
+        perm32 = perm.int()
+        out = torch.empty((n, k), dtype=torch.int64, device=pts.device)
+        _build.check(_build.kernel("caelo_knn_select")(
+            pp.data_ptr(), perm32.data_ptr(), p2.data_ptr(),
+            start.data_ptr(), boxes.data_ptr(), out.data_ptr(), n, k,
+            _build.stream(pts.device)), "KNN kernel")
+        _knn_kernel.launches += 1
+        return out
+
+
+_knn_neighbors.launches = 0
+# the counter's owner: the wrapper counts through this name, so a function
+# put in its place (a profiler's timer, a test's) does not take the count
+_knn_kernel = _knn_neighbors
 
 
 def _neighbor_cov(pts: torch.Tensor, mask: torch.Tensor, idx: torch.Tensor,

@@ -25,6 +25,11 @@ Phases (each raises on failure; the script then exits nonzero):
    bytes and ~3,760 float32 operations a lane) and, at 2,048 lanes, the
    time of ``torch.linalg.eigh`` on the same matrices; then 256 refit-like
    Horn matrices of 500 points, one lane a call, bit for bit;
+4c. K4 (the keypoint baselines' KNN scored and selected in one launch)
+   against its plain version on the card, bit for bit, on frame 0 at k 1,
+   16, 64 and 128: kernel and plain times at k 64 by CUDA events, the
+   kernel's host enqueue and its bound (every pair scored, 8 float32
+   operations a pair);
 5. the front-end odometry window at the full default ``PipelineConfig()``
    on 17 synthetic scans with random weights: run A (default config, K1 +
    K2) and run B (``use_pallas_plane_gather=False``: indexing), launch
@@ -142,14 +147,16 @@ Phases (each raises on failure; the script then exits nonzero):
    run makes (warm-up, reps, the counted window), and frames 0-15 of the
    64-frame float32 window bit-identical to the 16-frame window's.
 
-K1's, K2's and K3's launches are counted on the main path only (runs A,
-6a, 6d, 7, the trainers and the window of phase 8, the commands of phases
-9 and 10b, the windows and the unsorted-pyramid query of phase 11, 12a's
-extractor in its rank, whose counts come back to this process, phase 13's
-drivers, phase 14b's two runs and phase 15's benches), each count set to 0
-just before its run and read just after; every run that registers a pair
-must launch K3 at least four times (one RANSAC call), and 11c's query and
-12a's extractor, which register none, not at all.  Prints a
+K1's, K2's, K3's and K4's launches are counted on the main path only (runs
+A, 6a, 6d, 7, the trainers and the window of phase 8, the commands of
+phases 9 and 10b, the windows and the unsorted-pyramid query of phase 11,
+12a's extractor in its rank, whose counts come back to this process, phase
+13's drivers, phase 14b's two runs and phase 15's benches), each count set
+to 0 just before its run and read just after; every run that registers a
+pair must launch K3 at least four times (one RANSAC call), and 11c's query
+and 12a's extractor, which register none, not at all; K4 runs once a frame
+in phase 10b's ISS, Harris3D and SIFT3D rows and in none of runs A and B.
+Prints a
 ``{"kernels": [...]}`` JSON line, then the nvidia-smi line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Without a CUDA device
 it fails; it never falls back to the CPU.
@@ -473,6 +480,28 @@ def check_jacobi(A, what):
                              f"{out.numel()} entries differ from plain")
 
 
+# K4's float32 operations a pair, every pair scored: three for the dot
+# product and two for the score, an FMA counting two (8); the bytes a point
+# read: x, y, z and |p|^2
+K4_OPS_PER_PAIR = 8
+K4_BYTES_IN = 16
+
+
+def check_knn(pts, mask, k):
+    """K4 against its plain version, bit for bit, one launch."""
+    import torch
+    from caelo_tpu_torch.frontend.baselines import (_knn_neighbors,
+                                                    _knn_neighbors_plain)
+
+    before = _knn_neighbors.launches
+    out = _knn_neighbors(pts, mask, k)
+    ref = _knn_neighbors_plain(pts, mask, k)
+    torch.cuda.synchronize()
+    if _knn_neighbors.launches != before + 1 or not torch.equal(out, ref):
+        raise AssertionError(f"K4 k {k}: {int((out != ref).any(1).sum())} "
+                             f"of {out.shape[0]} rows differ from plain")
+
+
 def make_scans(cfg, thin=()):
     """Synthetic scans as bench.py makes them: the sensor translating
     through one scene, padded to cfg.max_points; scans in ``thin`` keep
@@ -587,16 +616,19 @@ def count_calls(module, name, record):
 
 
 def launch_counts():
+    from caelo_tpu_torch.frontend.baselines import _knn_neighbors
     from caelo_tpu_torch.geometry.se3 import max_eigvec_sym4x4_lanes
     from caelo_tpu_torch.ops.plane_gather import patches_from_planes
     from caelo_tpu_torch.ops.saliency import keypoint_score
 
     return {"saliency_map": keypoint_score.launches,
             "gather_planes": patches_from_planes.launches,
-            "max_eigvec_sym4x4": max_eigvec_sym4x4_lanes.launches}
+            "max_eigvec_sym4x4": max_eigvec_sym4x4_lanes.launches,
+            "knn_select": _knn_neighbors.launches}
 
 
 def reset_launches():
+    from caelo_tpu_torch.frontend.baselines import _knn_neighbors
     from caelo_tpu_torch.geometry.se3 import max_eigvec_sym4x4_lanes
     from caelo_tpu_torch.ops.plane_gather import patches_from_planes
     from caelo_tpu_torch.ops.saliency import keypoint_score
@@ -604,6 +636,7 @@ def reset_launches():
     keypoint_score.launches = 0
     patches_from_planes.launches = 0
     max_eigvec_sym4x4_lanes.launches = 0
+    _knn_neighbors.launches = 0
 
 
 def ran_k3(used, what):
@@ -1185,9 +1218,11 @@ def keypoint_rows(cfg, card, tmp, feats):
                 f"{used}; peak device memory {peak:.1f} MiB; rel |R^T R - I| "
                 f"{orth:.2e}; {card}")
             want_k2 = 0 if row == "ext-3dfeatnet" else 3 * n
-            if (used["saliency_map"], used["gather_planes"]) != (0, want_k2):
+            want_k4 = n if row in ("iss", "harris", "sift") else 0
+            if (used["saliency_map"], used["gather_planes"],
+                    used["knn_select"]) != (0, want_k2, want_k4):
                 raise AssertionError(f"row {row}: launches {used}, want K2 "
-                                     f"{want_k2} and no K1")
+                                     f"{want_k2}, K4 {want_k4} and no K1")
             ran_k3(used, f"10b row {row}")
             if row in ("iss", "harris", "sift") and not sum(n_kp):
                 raise AssertionError(f"row {row}: no keypoints")
@@ -1549,7 +1584,7 @@ def one_device_remainder(cfg, dev, card, scans, params, nets, res_a, feats_a,
     add_launches(launches, used)
     out_p = grid.extract_patches(f32.key_pts, f32.mask, pyr, vc)
     if used != {"saliency_map": 0, "gather_planes": 3,
-                "max_eigvec_sym4x4": 0} or not all(
+                "max_eigvec_sym4x4": 0, "knn_select": 0} or not all(
             torch.equal(a, b) for a, b in zip(out_u, out_p)):
         raise AssertionError(f"11c unsorted pyramid: launches {used}, or "
                              "patches differ from the presorted ones")
@@ -1648,7 +1683,7 @@ def card_world(rank, world, inputs):
     out["launches"] = launch_counts()
     B = pts.shape[0]
     if out["launches"] != {"saliency_map": B, "gather_planes": 3 * B,
-                           "max_eigvec_sym4x4": 0}:
+                           "max_eigvec_sym4x4": 0, "knn_select": 0}:
         raise AssertionError(f"12a extractor launches {out['launches']} for "
                              f"{B} frames")
     _, ms["extractor"] = event_ms(lambda: ex(*nets, pts, mask, gather=True))
@@ -2205,6 +2240,8 @@ def main():
     from caelo_tpu_torch.backend.refine_runner import (
         RefinementFeatures, make_batched_icp_fn, refine_pairs_batched)
     from caelo_tpu_torch.config import PipelineConfig
+    from caelo_tpu_torch.frontend.baselines import (_knn_neighbors,
+                                                    _knn_neighbors_plain)
     from caelo_tpu_torch.frontend.odometry import run_odometry_windowed
     from caelo_tpu_torch.frontend.registration import (
         extract_frame_features, extract_frame_features_full)
@@ -2430,6 +2467,25 @@ def main():
     del A
     k3_err = 0.0                                 # bit-exact, checked above
 
+    # ---- 4c. K4 against its plain version, bit for bit
+    pts_k = torch.from_numpy(np.ascontiguousarray(scans[0][0][:, :3])).to(dev)
+    msk_k = torch.from_numpy(scans[0][1]).to(dev)
+    for k in (64, 1, 16, 128):
+        check_knn(pts_k, msk_k, k)
+    k4_ms, k4_plain_ms = ab_ms(lambda: _knn_neighbors_plain(pts_k, msk_k, 64),
+                               lambda: _knn_neighbors(pts_k, msk_k, 64), 3)
+    n_k = pts_k.shape[0]
+    k4_bytes = n_k * K4_BYTES_IN + n_k * 64 * 8
+    k4_bound_ms, k4_bound_by = bound(k4_bytes, n_k * n_k * K4_OPS_PER_PAIR)
+    log(f"K4 frame 0 ({n_k} points, {int(msk_k.sum())} valid, k 64): "
+        f"bit-exact at k 1, 16, 64 and 128; kernel {k4_ms:.4f} ms, plain "
+        f"{k4_plain_ms:.4f} ms, bound {k4_bound_ms:.4f} ms ({k4_bound_by}, "
+        f"every pair scored; bytes alone {bound(k4_bytes, 0)[0]:.4f} ms); "
+        f"host enqueue "
+        f"{host_us(lambda: _knn_neighbors(pts_k, msk_k, 64), 10):.1f} us; "
+        f"{smi}")
+    del pts_k, msk_k
+
     # ---- 5. the slice
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -2452,9 +2508,12 @@ def main():
     log(f"run A (default config, K1 + K2): {t_a:.3f} s for {N_SCANS} scans, "
         f"launches {launches}; run B (indexing instead of K2): {t_b:.3f} s, "
         f"launches {launches_b}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("saliency_map", "gather_planes", "max_eigvec_sym4x4"):
+        if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
+    if launches["knn_select"]:
+        raise AssertionError("run A launched K4, which only the keypoint "
+                             "baselines run")
     if launches_b["gather_planes"]:
         raise AssertionError("run B launched K2")
 
@@ -2681,6 +2740,11 @@ def main():
          "launches": launches["max_eigvec_sym4x4"], "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound_ms,
          "bound_by": k3_bound_by, "library_ms": k3_lib_ms},
+        {"name": "knn_select", "route": "cuda",
+         "source": "caelo_tpu_torch/csrc/knn_select.cu", "replaces": None,
+         "launches": launches["knn_select"], "max_abs_err": 0.0,
+         "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound_ms,
+         "bound_by": k4_bound_by, "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,4 +1,4 @@
-"""The port on a CUDA device: the three CUDA kernels against their plain
+"""The port on a CUDA device: the four CUDA kernels against their plain
 versions at the main path's shapes and at the edges (borders, odd widths,
 pixels with no occupied neighbour, all-masked keypoints, clamped slots;
 K3's Jacobi bit for bit on random, diagonal, zero, repeated-eigenvalue and
@@ -7,7 +7,10 @@ pair registered through it against the plain route), one
 frame's features and registration, the batched hybrid ICP, the burst map
 ICP, a full-width train step of each auto-encoder and the patch trainer's
 data path, the keypoint baselines and ``features_from_keypoints`` (K2 at
-each scale), on the card against the CPU path; the binning products on
+each scale), on the card against the CPU path; K4's KNN bit for bit
+against its plain version on the card (three full-config scans of the
+benchmark's lap, duplicates, fewer than k valid points, a ragged N, k 1
+to 128) and ISS through it; the binning products on
 the card against the CPU's at bin edges; every sharded path in a NCCL
 world of one rank (``dryrun_multigpu(1, "cuda")``); ``cli selftest``
 on the card; and ``examples.hard_benchmark`` on 12 ray-cast frames on the
@@ -646,6 +649,119 @@ def test_detectors_on_card_match_cpu(cuda, monkeypatch, name):
                         res_g.key_pts.cpu(), res_g.key_mask.cpu(), n_kp,
                         idx=idx)
     assert got["unexplained"] == 0 and got["a"] > 0, got
+
+
+@pytest.fixture(scope="module")
+def lap_scans():
+    """Three full-config scans (131,072 points) of the ``iss-offline``
+    cell's lap, frames 0, 70 and 140 at seed 2**31 + 11, on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import json
+    import os
+    from perfbench.traffic.loop import make_lap
+
+    root = os.path.join(os.path.dirname(__file__), os.pardir, "perfbench")
+    with open(os.path.join(root, "workloads", "iss-offline.json")) as f:
+        work = json.load(f)
+    with open(os.path.join(root, "configs", "caelo-hdl64-iss.json")) as f:
+        pipe = json.load(f)["pipeline"]
+    dev = torch.device("cuda")
+    pts, mask = make_lap(work["traffic"], pipe["sensor"], pipe["max_points"],
+                         2 ** 31 + 11, dev)
+    return [(pts[i, :, :3].contiguous().to(dev), mask[i].to(dev))
+            for i in (0, 70, 140)]
+
+
+def _knn_case(case, k, dev):
+    """``(pts, mask)`` of an edge case of K4 on the card."""
+    g = np.random.default_rng(k)
+    if case == "tiny":
+        pts, mask = _scan(tiny_test_config(), 0.0)
+        pts = np.ascontiguousarray(pts[:, :3])
+    elif case == "duplicates":            # ties at the k-th place
+        base = g.normal(0, 4, (700, 3)).astype(np.float32)
+        pts = np.concatenate([base, base, base[:300]])
+        mask = g.uniform(size=len(pts)) < 0.9
+    elif case == "few_valid":             # fewer than k valid points
+        pts = g.normal(0, 4, (777, 3)).astype(np.float32)
+        mask = np.zeros(len(pts), bool)
+        mask[g.choice(len(pts), k // 2, replace=False)] = True
+    else:                                 # N not a multiple of a tile
+        pts = g.normal(0, 20, (1000, 3)).astype(np.float32)
+        mask = g.uniform(size=len(pts)) < 0.8
+    return torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev)
+
+
+def test_knn_kernel_matches_plain_on_lap(cuda, lap_scans):
+    """K4 against its plain version on the card, bit for bit, at k = 64 on
+    three full-config scans, one launch a call; ``q2 = p2[i]`` is the plain
+    version's per-chunk ``(qc * qc).sum(-1)``."""
+    import caelo_tpu_torch.frontend.baselines as bl
+
+    for pts, mask in lap_scans:
+        p2 = (pts * pts).sum(-1)
+        assert all(torch.equal((qc * qc).sum(-1), p2c) for qc, p2c in
+                   zip(pts.split(512), p2.split(512)))
+        before = bl._knn_neighbors.launches
+        got = bl._knn_neighbors(pts, mask, 64)
+        torch.cuda.synchronize()
+        assert bl._knn_neighbors.launches == before + 1
+        assert torch.equal(got, bl._knn_neighbors_plain(pts, mask, 64))
+
+
+@pytest.mark.parametrize("k", [1, 16, 64, 128])
+@pytest.mark.parametrize("case", ["tiny", "duplicates", "few_valid",
+                                  "ragged"])
+def test_knn_kernel_matches_plain_edges(cuda, case, k):
+    """K4 against its plain version on the card, bit for bit: the tiny
+    config's scan, exact duplicates (the lower index wins a tie at the
+    k-th place), fewer than k valid points, and N a multiple of neither
+    the query block nor the tile."""
+    import caelo_tpu_torch.frontend.baselines as bl
+
+    pts, mask = _knn_case(case, k, cuda)
+    got = bl._knn_neighbors(pts, mask, k)
+    assert got.shape == (len(pts), k)
+    assert torch.equal(got, bl._knn_neighbors_plain(pts, mask, k))
+
+
+def test_knn_kernel_refuses(cuda):
+    """The card's wrapper raises on what K4 does not take, launching
+    nothing."""
+    import caelo_tpu_torch.frontend.baselines as bl
+
+    pts, mask = _knn_case("ragged", 8, cuda)
+    before = bl._knn_neighbors.launches
+    for args, err in (((pts.double(), mask, 8), TypeError),
+                      ((pts, mask, 129), ValueError),
+                      ((pts, mask, 0), ValueError),
+                      ((pts[:5], mask[:5], 8), ValueError),
+                      ((pts.T.contiguous().T, mask, 8), ValueError),
+                      ((pts, mask.cpu(), 8), ValueError)):
+        with pytest.raises(err):
+            bl._knn_neighbors(*args)
+    assert bl._knn_neighbors.launches == before
+
+
+def test_iss_through_knn_kernel_matches_plain(cuda, lap_scans, monkeypatch):
+    """``iss_keypoints`` on a full-config scan gives the same keypoints
+    through K4 (one launch, counted on the wrapper even while a timer
+    stands in its place) as through the plain KNN on the card."""
+    import caelo_tpu_torch.frontend.baselines as bl
+
+    pts, mask = lap_scans[0]
+    kernel = bl._knn_neighbors
+    before = kernel.launches
+    monkeypatch.setattr(bl, "_knn_neighbors",
+                        lambda *args, **kw: kernel(*args, **kw))
+    res = bl.iss_keypoints(pts, mask)
+    assert kernel.launches == before + 1
+    monkeypatch.setattr(bl, "_knn_neighbors", bl._knn_neighbors_plain)
+    ref = bl.iss_keypoints(pts, mask)
+    assert int(res.key_mask.sum()) > 0
+    assert torch.equal(res.key_mask, ref.key_mask)
+    assert torch.equal(res.key_pts, ref.key_pts)
 
 
 def test_random_keypoints_on_card(cuda):

@@ -1,11 +1,12 @@
-"""The port's three kernels (K1 keypoint saliency and gates, K2 plane
-gather to finished patches, K3 the batched 4x4 Jacobi eigen solve): the
-plain PyTorch versions of K1 and K2 against the Pallas kernels in
-interpret mode, the JAX XLA code around them and a numpy oracle (K3's
-plain version is held to JAX by tests/test_torch_geometry.py), the
-wrappers' CPU dispatch, and the ctypes signatures against the C entry
-points.  The CUDA kernels themselves are tested on the card by
-tests/test_torch_gpu.py."""
+"""The port's four kernels (K1 keypoint saliency and gates, K2 plane
+gather to finished patches, K3 the batched 4x4 Jacobi eigen solve, K4 the
+KNN's scores and selection): the plain PyTorch versions of K1 and K2
+against the Pallas kernels in interpret mode, the JAX XLA code around them
+and a numpy oracle (K3's plain version is held to JAX by
+tests/test_torch_geometry.py, K4's by tests/test_torch_baselines.py), the
+wrappers' CPU dispatch and refusals, K4's visiting order, and the ctypes
+signatures against the C entry points.  The CUDA kernels themselves are
+tested on the card by tests/test_torch_gpu.py."""
 import ctypes
 import dataclasses
 import glob
@@ -24,6 +25,7 @@ from caelo_tpu.ops.pallas_nms import saliency_map_pallas
 from caelo_tpu.ops.pallas_patches import gather_planes_pallas
 from caelo_tpu.projection.spherical import project_to_spherical_ring
 from caelo_tpu_torch import _build
+from caelo_tpu_torch.frontend import baselines as bl
 from caelo_tpu_torch.geometry import se3
 from caelo_tpu_torch.ops.nms import top_k
 from caelo_tpu_torch.ops.plane_gather import (gather_planes_plain,
@@ -304,6 +306,111 @@ def test_jacobi_wrapper_takes_plain_on_cpu(rng):
         se3.max_eigvec_sym4x4_lanes(A.permute(1, 2, 0)[:3])
     with pytest.raises(ValueError):
         se3.max_eigvec_sym4x4_lanes(torch.zeros((4, 4, 2), device="meta"))
+
+
+def _knn_scan():
+    """The tiny config's synthetic scan: ``(pts (4096, 3), mask)``."""
+    from caelo_tpu_torch.config import tiny_test_config as ttiny
+    from caelo_tpu_torch.data.synthetic import (make_scene, range_filter,
+                                                sample_scene_points)
+    from caelo_tpu_torch.ops.masking import pad_points
+
+    cfg = ttiny()
+    world = sample_scene_points(make_scene(0, n_boxes=25, extent=30.0), 0,
+                                cfg.max_points)
+    pts, mask = pad_points(range_filter(world.astype(np.float32), cfg.sensor),
+                           cfg.max_points)
+    return torch.from_numpy(pts), torch.from_numpy(mask)
+
+
+def _knn_before_k4(pts, mask, k, chunk=512):
+    """``_knn_neighbors`` as it was before it had a kernel."""
+    p2m = torch.where(mask, (pts * pts).sum(-1), 1e12)
+    out = []
+    for qc in pts.split(chunk):
+        q2 = (qc * qc).sum(-1)
+        score = 2.0 * (qc @ pts.T) - p2m[None, :] - q2[:, None]
+        vals, idx = torch.topk(score, k, dim=-1)
+        idx, perm = idx.sort(-1)
+        order = vals.gather(-1, perm).sort(dim=-1, descending=True,
+                                           stable=True).indices
+        out.append(idx.gather(-1, order))
+    return torch.cat(out)
+
+
+def _no_kernel(*args, **kw):
+    raise AssertionError("the KNN wrapper reached the kernel library")
+
+
+def test_knn_wrapper_takes_plain_on_cpu(monkeypatch):
+    """``_knn_neighbors`` (K4's wrapper) takes its plain version for a CPU
+    tensor, equal to the function before K4 on the tiny scan, and neither
+    builds nor launches."""
+    pts, mask = _knn_scan()
+    monkeypatch.setattr(_build, "kernel", _no_kernel)
+    monkeypatch.setattr(_build, "load_library", _no_kernel)
+    before = bl._knn_neighbors.launches
+    got = bl._knn_neighbors(pts, mask, 64)
+    assert bl._knn_neighbors.launches == before
+    assert got.dtype == torch.int64 and got.shape == (len(pts), 64)
+    assert torch.equal(got, bl._knn_neighbors_plain(pts, mask, 64))
+    assert torch.equal(got, _knn_before_k4(pts, mask, 64))
+
+
+@pytest.mark.parametrize("bad", ["k0", "k129", "float64", "n4", "flat",
+                                 "meta"])
+def test_knn_wrapper_refuses(monkeypatch, bad):
+    """What K4 does not take raises before any build or launch: k outside
+    1 to 128, another type than float32, a shape other than (N, 3), a
+    device other than the CPU or a CUDA card."""
+    pts, mask = _knn_scan()
+    pts, mask = pts[:300], mask[:300]
+    monkeypatch.setattr(_build, "kernel", _no_kernel)
+    monkeypatch.setattr(_build, "load_library", _no_kernel)
+    args, err = {"k0": ((pts, mask, 0), ValueError),
+                 "k129": ((pts, mask, 129), ValueError),
+                 "float64": ((pts.double(), mask, 8), TypeError),
+                 "n4": ((torch.cat([pts, pts[:, :1]], 1), mask, 8),
+                        ValueError),
+                 "flat": ((pts.reshape(-1), mask, 8), ValueError),
+                 "meta": ((pts.to("meta"), mask.to("meta"), 8),
+                          ValueError)}[bad]
+    before = bl._knn_neighbors.launches
+    with pytest.raises(err):
+        bl._knn_neighbors(*args)
+    assert bl._knn_neighbors.launches == before
+
+
+def test_knn_visit_order():
+    """K4's visiting order is a permutation with the valid points first,
+    along the Morton curve, and a first tile for each query block inside
+    the scan; masked blocks start where their own coordinates sort."""
+    pts, mask = _knn_scan()
+    perm, start = bl._knn_visit_order(pts, mask)
+    n = len(pts)
+    assert torch.equal(perm.sort().values, torch.arange(n))
+    n_valid = int(mask.sum())
+    assert 0 < n_valid < n
+    assert bool(mask[perm[:n_valid]].all())
+    assert not bool(mask[perm[n_valid:]].any())
+    n_tiles = -(-n // bl._KNN_TILE)
+    assert start.dtype == torch.int32
+    assert start.shape == (-(-n // bl._KNN_QUERIES),)
+    assert int(start.min()) >= 0 and int(start.max()) < n_tiles
+    # the padding sits at the origin: its blocks start among the valid
+    # points, not at their own tiles at the end
+    first_masked = n_valid // bl._KNN_QUERIES + 1
+    assert int(start[first_masked:].max()) < n_valid // bl._KNN_TILE
+    # the curve's bit interleave, and neighbours along it lie near each other
+    v = torch.arange(1 << bl._MORTON_BITS)
+    assert torch.equal(bl._morton_spread(v), torch.tensor(
+        [sum(((x >> b) & 1) << (3 * b) for b in range(bl._MORTON_BITS))
+         for x in v.tolist()]))
+    step = (pts[perm[1:n_valid]] - pts[perm[:n_valid - 1]]).norm(dim=1)
+    shuffle = torch.randperm(n_valid - 1,
+                             generator=torch.Generator().manual_seed(0))
+    jump = (pts[perm[1:n_valid]] - pts[perm[shuffle]]).norm(dim=1)
+    assert float(step.median()) < 0.2 * float(jump.median())
 
 
 _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,

@@ -10,9 +10,10 @@ nvidia-smi name and power limit:
   on the card (cuSOLVER's batched solver refuses large batches, hence
   ``frontend/baselines.py::_EIGH_BATCH``), and ``_eigh``'s time and peak
   memory over the frame's 131,072 covariances;
-* ``_knn_neighbors`` at 512 (the default), 2,048 and 8,192 queries per
-  chunk: ms by CUDA events and peak memory, and the same for its parts on
-  one 512-query chunk (score matmul, top-k, the two sorts);
+* ``_knn_neighbors`` (K4), and its plain version at 512 (the default),
+  2,048 and 8,192 queries per chunk: ms by CUDA events and peak memory,
+  and the same for the plain version's parts on one 512-query chunk
+  (score matmul, top-k, the two sorts);
 * ISS, Harris3D and SIFT3D whole and stage by stage (``_knn_neighbors``,
   ``_neighbor_cov``, ``_eigh``, ``_radius_nms``, ``_sift_scale_space``;
   the rest is the response and SIFT's level scores): ms by CUDA events,
@@ -130,9 +131,11 @@ def main():
             print(f"torch.linalg.eigh of {batch} matrices in one call: "
                   f"refused ({str(e).splitlines()[0][:60]})")
 
+    report("_knn_neighbors k 64 (K4, one launch)",
+           lambda: bl._knn_neighbors(pts, mask, 64))
     for chunk in (512, 2048, 8192):
-        report(f"_knn_neighbors k 64, {chunk} queries a chunk",
-               lambda: bl._knn_neighbors(pts, mask, 64, chunk))
+        report(f"_knn_neighbors_plain k 64, {chunk} queries a chunk",
+               lambda: bl._knn_neighbors_plain(pts, mask, 64, chunk))
     qc = pts[:512]
     p2m = torch.where(mask, (pts * pts).sum(-1), 1e12)
     score = report("  one chunk: score matmul (512, N)",
