@@ -10,7 +10,7 @@ Prints ONE JSON line:
    "vs_baseline": N / BASELINE_FPS, "mfu": ..., "p50_ms": ..., ...}
 
 Measures the program ``run_odometry_windowed`` calls for each window,
-``parallel/pipeline.py::make_sequence_processor``: the per-frame front end
+``frontend/odometry.py::make_sequence_processor``: the per-frame front end
 (projection -> respond net -> K1 saliency and gates -> top-k -> voxel
 pyramid -> K2 patches at 3 scales -> encoder -> descriptors) for each of
 the window's frames, then the window's pairs registered as one batch
@@ -79,12 +79,12 @@ from torch.utils.flop_counter import FlopCounterMode
 from .cli import _add_common, _device
 from .config import PipelineConfig
 from .data.synthetic import make_scene, range_filter, sample_scene_points
+from .frontend.odometry import make_sequence_processor
 from .models import weights_io
 from .ops import nms
 from .ops.masking import pad_points
 from .ops.plane_gather import patches_from_planes_bytes
 from .ops.saliency import keypoint_score_bytes
-from .parallel.pipeline import make_sequence_processor
 from .utils.telemetry import MetricsLog
 from .voxel import grid
 from .voxel.grid import occupancy_stats, voxelize

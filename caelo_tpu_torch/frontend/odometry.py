@@ -1,6 +1,8 @@
 """Sequence odometry (port of ``caelo_tpu/frontend/odometry.py``): the
-frame-by-frame driver ``run_odometry`` and the windowed driver
-``run_odometry_windowed``.
+frame-by-frame driver ``run_odometry``, and the windowed driver
+``run_odometry_windowed`` with its one-device window processor
+``make_sequence_processor`` (the JAX package keeps that in
+``parallel/pipeline.py``).
 
 Feature extraction and registration run on the device; the pose chain --
 the only sequential dependency -- is host float64.
@@ -19,10 +21,11 @@ from ..backend.refine_runner import RefinementFeatures
 from ..config import PipelineConfig
 from .. import setup_device
 from ..geometry.kitti_pose import chain_poses
-from ..parallel.pipeline import make_sequence_processor
 from ..utils.telemetry import span
-from .registration import (FrameFeatures, extract_frame_features,
-                           register_pair, register_pair_with_prior)
+from .registration import (FrameFeatures, PairRegistration,
+                           extract_frame_features,
+                           extract_frame_features_full, register_pair,
+                           register_pair_with_prior, stack_features)
 
 
 @dataclasses.dataclass
@@ -132,6 +135,61 @@ def run_odometry(scans: Iterable, respond_net, encoder, R_tr=None, t_tr=None,
         rel_Rs=rel_Rs, rel_ts=rel_ts, successes=np.array(succ, bool),
         n_inliers=np.array(n_inl, np.int32), inlier_pairs=pairs,
         thresholds=np.array(ths, np.float32))
+
+
+def make_sequence_processor(cfg: PipelineConfig = PipelineConfig(),
+                            with_refine: bool = False):
+    """Returns ``process(respond_net, encoder, pts (B, N, 4), mask (B, N),
+    generator=None, samples=None) -> (FrameFeatures batch of B,
+    PairRegistration batch of B-1)``, or with ``with_refine`` ``->
+    (FrameFeatures, RefinementFeatures, PairRegistration)``: the
+    refinement features come from the same projection / respond / NMS
+    results, with no second front-end pass.
+
+    ``samples``, if given, is ``(pass1, pass2)``: ``(B-1, H, S)`` RANSAC
+    pair indices for the plain pass and for the motion-prior retry.
+    """
+    extract = extract_frame_features_full if with_refine else (
+        lambda *args: (extract_frame_features(*args), None))
+
+    def process(respond_net, encoder, pts, mask, generator=None,
+                samples=None):
+        per_frame = [extract(respond_net, encoder, pts[b], mask[b], cfg)
+                     for b in range(pts.shape[0])]
+        feats = stack_features([f for f, _ in per_frame])
+        f0 = FrameFeatures(*(x[:-1] for x in feats))
+        f1 = FrameFeatures(*(x[1:] for x in feats))
+        s1, s2 = (None, None) if samples is None else samples
+        regs = register_pair(f0, f1, cfg, generator=generator, samples=s1)
+        # motion-prior fallback: pair k retries with pair k-1's pass-1
+        # result as a constant-velocity prior (identity for the window's
+        # first pair and after a failure), kept only where pass 1 failed.
+        # The JAX version hides the pass under lax.cond; here it is a host
+        # check.
+        if cfg.prior_gate_m > 0.0 and not bool(regs.success.all()):
+            with span("caelo.register.retry"):
+                eye = torch.eye(3, dtype=regs.R.dtype,
+                                device=regs.R.device)[None]
+                zero = torch.zeros_like(regs.t[:1])
+                ok_prev = regs.success[:-1]
+                prior_R = torch.cat([eye, torch.where(
+                    ok_prev[:, None, None], regs.R[:-1], eye)])
+                prior_t = torch.cat([zero, torch.where(
+                    ok_prev[:, None], regs.t[:-1], zero)])
+                regs2 = register_pair_with_prior(
+                    f0, f1, prior_R, prior_t, cfg, generator=generator,
+                    samples=s2)
+                use2 = ~regs.success & regs2.success
+                regs = PairRegistration(*(
+                    torch.where(use2.view(-1, *[1] * (a.dim() - 1)), a, b)
+                    for a, b in zip(regs2, regs)))
+        if with_refine:
+            ref_feats = RefinementFeatures(*(
+                torch.stack(xs) for xs in zip(*(r for _, r in per_frame))))
+            return feats, ref_feats, regs
+        return feats, regs
+
+    return process
 
 
 def window_starts(n: int, window: int) -> list:

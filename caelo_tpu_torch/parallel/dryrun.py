@@ -51,6 +51,7 @@ from ..backend.refine_runner import RefinementFeatures, make_batched_icp_fn
 from ..backend.scancontext import sc_correlation_matrix, sc_row_block
 from ..config import tiny_test_config
 from ..data.synthetic import synthetic_scan_pair
+from ..frontend.odometry import make_sequence_processor
 from ..frontend.registration import extract_frame_features
 from ..models import weights_io
 from ..models.patch_encoder import VoxelPatchAE
@@ -60,9 +61,8 @@ from ..training.train import (adam, create_train_state,
                               patch_loss, shard_train_state)
 from .mesh import (all_gather_rows, make_mesh, run_ranks, shard_rows,
                    world_mesh)
-from .pipeline import (make_batched_feature_extractor, make_sequence_processor,
-                       make_sharded_icp_fn, make_sharded_sc_correlation,
-                       neighbor_pose_exchange)
+from .pipeline import (make_batched_feature_extractor, make_sharded_icp_fn,
+                       make_sharded_sc_correlation, neighbor_pose_exchange)
 
 PATHS = ("mesh", "train", "extract", "halo", "posegraph", "window", "icp",
          "sc")

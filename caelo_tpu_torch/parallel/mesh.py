@@ -21,7 +21,6 @@ import tempfile
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import Replicate, Shard
 
 AXES = ("data", "model")
 
@@ -70,17 +69,6 @@ def world_mesh() -> DeviceMesh:
     if not _WORLD_MESH or _WORLD_MESH[0][0] is not world:
         _WORLD_MESH[:] = [(world, make_mesh())]
     return _WORLD_MESH[0][1]
-
-
-def data_sharding(mesh: DeviceMesh):
-    """DTensor placements of an array whose leading axis is sharded over
-    ``"data"`` and replicated over ``"model"`` (JAX's ``P("data")``)."""
-    return (Shard(0), Replicate())
-
-
-def replicated(mesh: DeviceMesh):
-    """DTensor placements of an array every rank holds whole (``P()``)."""
-    return (Replicate(), Replicate())
 
 
 def axis(mesh: DeviceMesh, name: str = "data"):

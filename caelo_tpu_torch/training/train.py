@@ -23,7 +23,7 @@ from torch.distributed.tensor import Replicate, Shard
 from torch.nn import functional as F
 
 from ..parallel.mesh import (all_reduce_sum, axis, block, broadcast_module,
-                             data_sharding, shard_rows)
+                             shard_rows)
 
 
 class TrainState(NamedTuple):
@@ -215,7 +215,8 @@ def make_sharded_train_step(loss_fn: Callable, mesh):
     ``"data"`` by an all-reduce, and ``loss`` the global batch's mean
     (equal blocks).  The optimizer is the state's, as in
     ``make_train_step``.  Returns ``(step, batch_placement)``, the DTensor
-    placements of the batch over the mesh (JAX's ``batch_sharding``)."""
+    placements of the batch over the mesh (JAX's ``batch_sharding``): its
+    leading axis sharded over ``"data"``, replicated over ``"model"``."""
     group, _, n = axis(mesh)
 
     def step(state: TrainState, batch):
@@ -232,4 +233,4 @@ def make_sharded_train_step(loss_fn: Callable, mesh):
         loss = all_reduce_sum(loss.detach(), group) / n
         return state._replace(step=state.step + 1), loss
 
-    return step, data_sharding(mesh)
+    return step, (Shard(0), Replicate())

@@ -1355,12 +1355,12 @@ def one_device_remainder(cfg, dev, card, scans, params, nets, res_a, feats_a,
     import torch
     from caelo_tpu_torch.data.scancache import NpyScanReader
     from caelo_tpu_torch.eval.keypoint_flips import neighbor_ties
-    from caelo_tpu_torch.frontend.odometry import (run_odometry_windowed,
+    from caelo_tpu_torch.frontend.odometry import (make_sequence_processor,
+                                                   run_odometry_windowed,
                                                    window_starts)
     from caelo_tpu_torch.frontend.registration import (
         extract_frame_features, run_in)
     from caelo_tpu_torch.models.weights_io import build_models
-    from caelo_tpu_torch.parallel.pipeline import make_sequence_processor
     from caelo_tpu_torch.projection.spherical import ring_bins
     from caelo_tpu_torch.voxel import grid
 
@@ -2242,7 +2242,8 @@ def main():
     from caelo_tpu_torch.config import PipelineConfig
     from caelo_tpu_torch.frontend.baselines import (_knn_neighbors,
                                                     _knn_neighbors_plain)
-    from caelo_tpu_torch.frontend.odometry import run_odometry_windowed
+    from caelo_tpu_torch.frontend.odometry import (make_sequence_processor,
+                                                   run_odometry_windowed)
     from caelo_tpu_torch.frontend.registration import (
         extract_frame_features, extract_frame_features_full)
     from caelo_tpu_torch.geometry.se3 import (max_eigvec_sym4x4_lanes,
@@ -2254,7 +2255,6 @@ def main():
                                                   patches_from_planes_plain)
     from caelo_tpu_torch.ops.saliency import (keypoint_score,
                                               keypoint_score_plain)
-    from caelo_tpu_torch.parallel.pipeline import make_sequence_processor
     from caelo_tpu_torch.pipeline import run_full_pipeline
     from caelo_tpu_torch.projection.spherical import (
         model_input, project_to_spherical_ring)

@@ -12,7 +12,8 @@ sets JAX up; nothing here imports JAX.
 - Time limits.  In an xdist worker, each phase (setup, call, teardown) of
   a test not marked ``slow`` fails alone after twice its file's weight,
   and no sooner than ``MIN_TIME_LIMIT`` seconds; the processes the phase
-  started are killed, and the run goes on.
+  started are killed and waited for until they have exited, and the run
+  goes on.
 
 Refresh the table from the junit file of a whole run::
 
@@ -23,12 +24,14 @@ import json
 import os
 import signal
 import statistics
+import time
 
 import pytest
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TABLE = os.path.join(ROOT, "tests", "file_weights.json")
 MIN_TIME_LIMIT = 600.0
+KILL_WAIT = 30.0   # seconds a killed process may take to exit
 WORKERS = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
 
 with open(TABLE) as f:
@@ -75,6 +78,15 @@ def _descendants(pid):
     return found
 
 
+def _exited(pid):
+    """Whether ``pid`` has exited: a zombie, or gone."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] in ("Z", "X")
+    except OSError:
+        return True
+
+
 def _time_limited(item, phase):
     if not WORKERS or item.get_closest_marker("slow"):
         return (yield)
@@ -82,11 +94,17 @@ def _time_limited(item, phase):
     before = _descendants(os.getpid())
 
     def expire(signum, frame):
-        for pid in _descendants(os.getpid()) - before:
+        killed = _descendants(os.getpid()) - before
+        for pid in killed:
             try:
                 os.kill(pid, signal.SIGKILL)
             except OSError:
                 pass
+        # A killed process runs on until its threads and memory are torn
+        # down; the next test must find it a zombie or gone.
+        deadline = time.monotonic() + KILL_WAIT
+        while not all(map(_exited, killed)) and time.monotonic() < deadline:
+            time.sleep(0.01)
         pytest.fail(f"{item.nodeid}: {phase} ran past its time limit of "
                     f"{limit:g} s", pytrace=False)
 

@@ -139,8 +139,11 @@ def test_hung_rank_was_killed():
         with open(path) as f:
             kids = f.read().split()
         for kid in kids:
+            with open(f"/proc/{kid}/cmdline") as f:
+                cmd = f.read().replace("\\0", " ")
             with open(f"/proc/{kid}/stat") as f:
-                assert f.read().rsplit(")", 1)[1].split()[0] == "Z", kid
+                state = f.read().rsplit(")", 1)[1].split()[0]
+            assert state == "Z", (kid, state, cmd)
 
 
 @pytest.mark.slow

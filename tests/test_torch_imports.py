@@ -11,6 +11,8 @@ import ast
 import dataclasses
 import glob
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -378,3 +380,29 @@ def test_example_constants_are_copies():
                  "RTE_M", "SUCCESS", "SUCCESS_REFINED", "LOOP_PRECISION",
                  "LOOP_RECALL", "LOOP_ATE_SHRINK"):
         assert getattr(hard_benchmark, name) in literals, name
+
+
+# What importing a module of the port may not load: the one-device driver
+# nothing of the multi-GPU package, and the SPMD layer no DTensor (only the
+# tensor-parallel trainer uses it).
+_DTENSOR = "torch.distributed.tensor"
+
+
+@pytest.mark.parametrize("module, unloaded", [
+    ("caelo_tpu_torch.frontend.odometry",
+     ("caelo_tpu_torch.parallel", _DTENSOR, "sympy")),
+    ("caelo_tpu_torch.parallel.mesh", (_DTENSOR,)),
+    ("caelo_tpu_torch.parallel.pipeline", (_DTENSOR,)),
+    ("caelo_tpu_torch.pipeline", (_DTENSOR,)),
+])
+def test_import_loads_only_its_layers(module, unloaded):
+    """Imports ``module`` in a fresh interpreter and reads ``sys.modules``:
+    no module under any of ``unloaded`` is there."""
+    code = (f"import importlib, sys; importlib.import_module({module!r}); "
+            "print('\\n'.join(sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, check=True,
+                         timeout=300).stdout
+    loaded = [m for m in out.split() if any(
+        m == u or m.startswith(u + ".") for u in unloaded)]
+    assert not loaded, f"importing {module} loads {loaded[:5]}"

@@ -211,7 +211,7 @@ def test_the_attributes_the_benchmark_swaps_are_the_plain_functions():
                     (registration.extract_frame_features, registration),
                     (registration.register_pair, registration),
                     (registration.register_pair_with_prior, registration),
-                    (par.make_sequence_processor, par),
+                    (odometry.make_sequence_processor, odometry),
                     (grid.voxelize, grid), (grid.extract_patches, grid)]:
         assert fn.__module__ == mod.__name__, fn
         assert fn is getattr(mod, fn.__qualname__), fn

@@ -33,11 +33,9 @@ from caelo_tpu_torch import _build, setup_device  # noqa: E402
 from caelo_tpu_torch.config import PipelineConfig  # noqa: E402
 from caelo_tpu_torch.frontend.matching import match_descriptors  # noqa: E402
 from caelo_tpu_torch.frontend.odometry import (  # noqa: E402
-    run_odometry_windowed)
+    make_sequence_processor, run_odometry_windowed)
 from caelo_tpu_torch.models.weights_io import (  # noqa: E402
     build_models, random_flax_params)
-from caelo_tpu_torch.parallel.pipeline import (  # noqa: E402
-    make_sequence_processor)
 
 WINDOW = 16
 

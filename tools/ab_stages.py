@@ -34,13 +34,13 @@ import torch  # noqa: E402
 import chip_smoke  # noqa: E402
 from caelo_tpu_torch import _build, setup_device  # noqa: E402
 from caelo_tpu_torch.config import PipelineConfig  # noqa: E402
+from caelo_tpu_torch.frontend.odometry import (  # noqa: E402
+    make_sequence_processor)
 from caelo_tpu_torch.frontend.registration import (  # noqa: E402
     FrameFeatures, register_pair, stack_features)
 from caelo_tpu_torch.models.weights_io import (  # noqa: E402
     build_models, random_flax_params)
 from caelo_tpu_torch.ops.nms import select_keypoints_planes  # noqa: E402
-from caelo_tpu_torch.parallel.pipeline import (  # noqa: E402
-    make_sequence_processor)
 from caelo_tpu_torch.projection.spherical import (  # noqa: E402
     model_input, project_to_spherical_ring)
 from caelo_tpu_torch.utils.telemetry import StageTimer  # noqa: E402
